@@ -1,22 +1,22 @@
-"""doppler_tpu — a TPU-native satellite Doppler-correction framework.
+"""doppler_tpu — a satellite Doppler-correction framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
-``cubehub/doppler`` reference (Rust + C, ``/root/reference``), extended with the
-polyphase resampling its ecosystem delegated to liquid-dsp, and scaled over
-multi-chip TPU meshes.
+A from-scratch JAX/XLA re-design of the capabilities of the
+``cubehub/doppler`` reference (Rust + C), extended with the polyphase
+resampling its ecosystem delegated to liquid-dsp, and scaled over a mesh of
+GPU cards.
 
 Design stance (see SURVEY.md §7): the reference is a sequential per-sample CPU
 stream filter; this framework is a *block-parallel array program*.  The host
 does O(blocks) scalar work — CLI, TLE/SGP4 propagation, Doppler scheduling,
-stream I/O, telemetry — while the device does all O(samples) work as fused
-vector kernels over time-blocked IQ, sharded ``('time', 'channel')`` over a
-``jax.sharding.Mesh``.
+stream I/O, telemetry — while the device does all O(samples) work as jitted
+XLA programs over time-blocked IQ, sharded ``('channel', 'time')`` over a
+``jax.sharding.Mesh`` of cards.
 
 Subpackages
 -----------
 - ``doppler_tpu.ops``      — device compute: IQ codecs, NCO mixer, polyphase
-                             resampler, fixed-point phase arithmetic, Pallas
-                             fused kernels.
+                             resampler (single-stage and cascade),
+                             fixed-point phase arithmetic.
 - ``doppler_tpu.orbit``    — host orbital mechanics: TLE parsing, SGP4/SDP4
                              propagation, observer geometry, Doppler schedules.
 - ``doppler_tpu.parallel`` — meshes, shardings, halo-exchange collectives.

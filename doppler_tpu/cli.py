@@ -129,38 +129,24 @@ def _add_io_args(p: argparse.ArgumentParser) -> None:
                    default="auto",
                    help="resampler structure: 'auto' (default) uses the "
                         "halfband-cascade msresamp-style multi-stage design "
-                        "when decimating ≥4x (fused end-to-end on TPU) and "
-                        "single-stage polyphase otherwise; 'single'/'multi' "
-                        "force one structure")
+                        "when decimating ≥4x and single-stage polyphase "
+                        "otherwise; 'single'/'multi' force one structure")
     p.add_argument("--resample-impl", choices=["auto", "conv", "window"],
                    default="auto",
                    help="resampler device formulation: banded windows-matmul "
-                        "(conv — runs on the MXU) or gather+fixed-tree "
-                        "(window); auto picks conv unless taps ≫ Q")
+                        "(conv) or gather+fixed-tree (window); auto picks "
+                        "conv unless taps ≫ Q")
     p.add_argument("--exact-ratio", action="store_true",
                    help="use exact rational NCO rate instead of mirroring the "
                         "reference's f32-rounded shift/samplerate ratio")
-    p.add_argument("--impl", choices=["auto", "xla", "pallas"], default="auto",
-                   help="mixer kernel implementation: 'pallas' prefers the "
-                        "fused TPU kernels (falls back to XLA for shapes/"
-                        "dtypes they don't cover), 'xla' forces the XLA "
-                        "graphs, 'auto' (default) = pallas on TPU, xla on "
-                        "CPU")
-    p.add_argument("--precision", choices=["exact", "fast"], default="exact",
-                   help="resampler matmul precision: 'exact' (default) is "
-                        "the 6-pass f32 formulation (≤1 LSB vs the oracle); "
-                        "'fast' uses the 3-pass bf16-split MXU scheme on "
-                        "the fused unsharded single-stage chain (+6%% "
-                        "measured on v5e) and the channel-batched chain "
-                        "(+8%%), at ~90 dB vs exact — far inside the "
-                        "reference's own f32 phase noise; cascades measure "
-                        "no gain and keep exact, as do mesh paths")
     p.add_argument("--drain", action="store_true",
                    help="flush the resampler FIR tail with zeros at EOF")
     p.add_argument("--log-format", choices=["fern", "json"], default="fern",
                    help="stderr telemetry format")
-    p.add_argument("--platform", choices=["cpu", "tpu", "default"],
-                   default="default", help="JAX platform override")
+    p.add_argument("--platform", choices=["cpu", "default"],
+                   default="default",
+                   help="'cpu' runs on the host CPU; 'default' runs on "
+                        "JAX's default device (the GPU where there is one)")
     p.add_argument("--log-level", default="info",
                    choices=["debug", "info", "warning", "error"])
     p.add_argument("--mesh", default=None, metavar="SPEC",
@@ -205,7 +191,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="doppler",
         description="Compensates IQ data stream doppler shift based on TLE "
                     "information, also can be used for doing constant "
-                    "baseband shifting (TPU-native implementation)",
+                    "baseband shifting (JAX implementation)",
     )
     # reference parity: clap's -V/--version (usage.rs:122)
     from doppler_tpu import __version__
@@ -252,31 +238,6 @@ def _select_platform(platform: str) -> None:
 
     if platform == "cpu":
         jax.config.update("jax_platforms", "cpu")
-    elif platform == "tpu":
-        pass  # image default is the TPU backend
-
-
-def _resolve_impl(impl: str) -> str:
-    """'auto' → fused Pallas kernels on TPU, XLA graphs on CPU."""
-    if impl != "auto":
-        return impl
-    return "xla" if _platform_is_cpu() else "pallas"
-
-
-def _platform_is_cpu() -> bool:
-    import jax
-
-    try:
-        return jax.devices()[0].platform.lower() == "cpu"
-    except Exception:
-        return True
-
-
-def _pallas_interpret_needed(impl: str) -> bool:
-    """Explicit --impl pallas on a CPU backend runs the kernels in the
-    Pallas interpreter (Mosaic only compiles for TPU) — slow but correct,
-    and what the sharding-equivalence tests exercise."""
-    return impl == "pallas" and _platform_is_cpu()
 
 
 def _resolve_chunk_blocks(arg, samplerate: int, block_samples: int,
@@ -311,6 +272,9 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     log = setup_logger(getattr(logging, args.log_level.upper()),
                        fmt=getattr(args, "log_format", "fern"))
     _select_platform(args.platform)
+    from doppler_tpu.runtime.device import device_summary, enable_compile_cache
+
+    cache_dir = enable_compile_cache()
 
     # a sub-sample --block-bytes crashed deep inside the run loop (or a
     # ZeroDivisionError in 'auto' chunk sizing) — validate up front like
@@ -346,6 +310,10 @@ def main(argv=None, stdin=None, stdout=None) -> int:
         # k resumes from PATH.hK appending to its own part file, emitting
         # exactly the bytes the uninterrupted run would have (elastic
         # recovery, SURVEY §5; tests/test_distributed.py).
+
+    dev = device_summary()
+    log.info("device: platform=%s kind=%s count=%d (compile cache %s)",
+             dev["platform"], dev["kind"], dev["count"], cache_dir)
 
     outtype = args.outtype or args.intype
     if args.input:
@@ -472,13 +440,9 @@ def main(argv=None, stdin=None, stdout=None) -> int:
                 block_bytes=args.block_bytes,
                 chunk_blocks=chunk_blocks,
                 quantize_ratio_f32=not args.exact_ratio,
-                impl=_resolve_impl(args.impl),
-                pallas_interpret=_pallas_interpret_needed(
-                    _resolve_impl(args.impl)),
                 mesh=mesh,
                 drain_on_eof=args.drain,
                 resample_stages=args.resample_stages,
-                precision=args.precision,
             )
         except ValueError as e:
             log.error("%s", e)
@@ -621,12 +585,9 @@ def main(argv=None, stdin=None, stdout=None) -> int:
             block_bytes=args.block_bytes,
             chunk_blocks=chunk_blocks,
             quantize_ratio_f32=not args.exact_ratio,
-            impl=_resolve_impl(args.impl),
-            pallas_interpret=_pallas_interpret_needed(_resolve_impl(args.impl)),
             drain_on_eof=args.drain,
             prefetch_chunks=args.prefetch_chunks,
             mesh=mesh,
-            precision=args.precision,
         )
         if args.resample_to is not None:
             from doppler_tpu.ops.resample import attach_resampler

@@ -10,9 +10,9 @@ Reproduces the reference's IQ wire formats exactly (SURVEY §2 #3-4):
 - **f32**: little-endian interleaved float32 pairs, raw bit image
   (``src/dsp.rs:101-115``, ``src/main.rs:89-93``).
 
-TPU-native representation: **planar IQ** — separate ``(…, N)`` float32 arrays
-for I and Q.  Interleaved complex layouts force stride-2 lane access; planar
-arrays keep the last axis dense for the VPU.  On the wire an i16 IQ pair is
+Device representation: **planar IQ** — separate ``(…, N)`` float32 arrays
+for I and Q.  Interleaved complex layouts force stride-2 access; planar
+arrays keep the last axis dense.  On the wire an i16 IQ pair is
 exactly one little-endian int32 word, so device decode is a bitwise unpack of
 an int32 vector (no strided gather): ``i = (w << 16) >> 16`` (sign-extended
 low half), ``q = w >> 16`` (arithmetic shift).  Encode is the inverse pack.

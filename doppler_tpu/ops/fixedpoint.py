@@ -1,4 +1,4 @@
-"""Exact 64-bit fixed-point phase arithmetic on 32-bit TPU integer lanes.
+"""Exact 64-bit fixed-point phase arithmetic on 32-bit integer lanes.
 
 The reference NCO's emitted phase is a pure function of the absolute sample
 index ``n`` (SURVEY §3.4; reference ``src/dsp.rs:117-134``):
@@ -6,11 +6,11 @@ index ``n`` (SURVEY §3.4; reference ``src/dsp.rs:117-134``):
     phase(n) = -2π · frac(r · n),   r = shift_hz / samplerate.
 
 We represent ``frac(r)`` as an unsigned Q0.64 fixed-point word ``D`` and
-compute ``(n · D) mod 2^64`` *exactly* with uint32 pair arithmetic — TPU VPU
-lanes are 32-bit, int64 is emulated and slow, and f64 is unavailable in
-Pallas.  Modular arithmetic makes the phase bit-identical regardless of how
-the sample axis is sharded: any chip computing sample ``n`` produces the same
-corrector, so time-sharding needs **zero** communication for the mixer.
+compute ``(n · D) mod 2^64`` *exactly* with uint32 pair arithmetic — native
+32-bit integer work on any accelerator, with no int64 or f64.  Modular
+arithmetic makes the phase bit-identical regardless of how the sample axis
+is sharded: any card computing sample ``n`` produces the same corrector, so
+time-sharding needs **zero** communication for the mixer.
 
 Accuracy: the only approximation is quantizing the rate to 2^-64 cycles.
 Phase error after ``n`` samples is ≤ n·2^-65 cycles — below f32 resolution
@@ -72,7 +72,7 @@ def umulhi32(a, b):
     """High 32 bits of a 32×32→64 unsigned multiply, in pure uint32 ops.
 
     Replaces the reference's per-sample C FFI (``src/complex.c``) era with
-    VPU-friendly lane math: four 16×16 partial products with carry chaining.
+    32-bit lane math: four 16×16 partial products with carry chaining.
     """
     a = a.astype(_U32)
     b = b.astype(_U32)

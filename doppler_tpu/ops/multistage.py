@@ -195,6 +195,20 @@ class MultiStageResampler:
             i, q, n = st.process(i, q, n, st.max_out_for(cap))
         return i, q, n
 
+    def step_operands(self, valid: int, capacity: int):
+        """Host half of :meth:`process` for one chunk of ``capacity``
+        samples: each stage's :meth:`RationalResampler.step_operands`
+        ``(a1, a2)`` plus the stage's valid input count, flattened, and the
+        cascade's valid output count.  Advances every stage's counters."""
+        operands = []
+        n, cap = int(valid), int(capacity)
+        for st in self.stages:
+            M = st.max_out_for(cap)
+            a1, a2, n_out = st.step_operands(n, cap, M)
+            operands += [np.int32(a1), np.int32(a2), np.int32(n)]
+            n, cap = n_out, M
+        return operands, n
+
     # -- checkpointing ---------------------------------------------------
 
     def state_dict(self) -> dict:

@@ -1,7 +1,7 @@
 """Polyphase rational resampler — streaming, stateless-on-device.
 
 The capability half of liquid-dsp's ``msresamp`` (SURVEY §2 #10; BASELINE
-config 3: 1.024 Msps → 48 ksps).  TPU-first formulation: every output sample
+config 3: 1.024 Msps → 48 ksps).  Array formulation: every output sample
 is a *pure function of its absolute output index m*,
 
     y[m] = Σ_{l<T} bank[(m·Q) mod P, l] · x[⌊m·Q/P⌋ − l]
@@ -95,7 +95,7 @@ def _resample_kernel(xi, xq, bank_rev, rem0, off0, *, P, Q, T, M):
 @partial(jax.jit, static_argnames=("P", "Q", "T", "K", "M", "PADZ", "TAIL"))
 def resample_conv_stream(xi, xq, taps_mat, start0, p0,
                          *, P, Q, T, K, M, PADZ, TAIL):
-    """Streaming banded-matmul resampler — the MXU product path.
+    """Streaming banded-matmul resampler — the product path.
 
     Generalizes :func:`resample_conv_block` to *arbitrary* mid-stream
     alignment: outputs are computed in full polyphase cycles (P consecutive
@@ -194,9 +194,8 @@ class RationalResampler:
 
     ``impl`` selects the device formulation (identical Bresenham alignment,
     identical taps, different f32 evaluation): ``'conv'`` is the banded
-    windows-matmul that runs on the MXU — ~30× the gather path on TPU
-    hardware (tools/resample_probe.py); ``'window'`` is the
-    gather+fixed-tree formulation.  ``'auto'`` (default) picks conv unless
+    windows-matmul (cuBLAS products at ``Precision.HIGHEST``); ``'window'``
+    is the gather+fixed-tree formulation.  ``'auto'`` (default) picks conv unless
     the band count R = ⌈(Q−1+T)/Q⌉ is large (taps ≫ Q, e.g. halfband
     stages), where the banded decomposition degenerates into an R-long
     loop of skinny matmuls and the gather wins.
@@ -279,48 +278,67 @@ class RationalResampler:
                    never influence valid outputs.
         ``M``    : static output capacity (≥ out_count_for(valid)).
         Returns (yi, yq, n_valid_outputs).
+
+        The host half (:meth:`step_operands`) and the device half
+        (:meth:`device_step`) are also called separately by the
+        channel-sharded cascade step (``parallel.sharded``).
         """
+        a1, a2, n_out = self.step_operands(valid, int(np.shape(i)[-1]), M)
+        # History stays a device array: no host sync on the async path.
+        yi, yq, self._hist_i, self._hist_q = self.device_step(
+            self._hist_i, self._hist_q, i, q,
+            jnp.int32(a1), jnp.int32(a2), int(valid), int(M))
+        return yi, yq, n_out
+
+    def step_operands(self, valid: int, N: int, M: int):
+        """Host half of :meth:`process` for a chunk of ``N`` samples, ``valid``
+        of them real: returns ``(a1, a2, n_out)`` — the chunk's two dynamic
+        alignment ints ((start0, p0) for 'conv', (rem0, off0) for 'window')
+        and its valid output count — and advances the stream counters."""
         T, P, Q = self.T, self.P, self.Q
         n_out = self.out_count_for(valid)
         if int(valid) * P >= (1 << 31) // 2:
             raise ValueError("chunk too large for 32-bit phase arithmetic")
-
-        xi = jnp.concatenate([jnp.asarray(self._hist_i), jnp.asarray(i)], axis=-1)
-        xq = jnp.concatenate([jnp.asarray(self._hist_q), jnp.asarray(q)], axis=-1)
-
         m0 = self.m_next
         if self.impl == "conv":
-            N = int(np.shape(i)[-1])
-            start0, p0, K, PADZ, TAIL = conv_stream_geometry(
-                m0, self.in_consumed, int(M), N, P=P, Q=Q, T=T
-            )
-            yi, yq = resample_conv_stream(
-                xi, xq, self._taps_mat, jnp.int32(start0), jnp.int32(p0),
-                P=P, Q=Q, T=T, K=K, M=int(M), PADZ=PADZ, TAIL=TAIL,
+            a1, a2, *_ = conv_stream_geometry(
+                m0, self.in_consumed, int(M), int(N), P=P, Q=Q, T=T
             )
         else:
-            rem0 = (m0 * Q) % P
-            n_m0 = (m0 * Q) // P
-            # xi[0] holds absolute input index in_consumed − (T−1)
-            off0 = n_m0 - (T - 1) - (self.in_consumed - (T - 1))
-            yi, yq = _resample_kernel(
-                xi, xq, self._bank_rev,
-                jnp.int32(rem0), jnp.int32(off0),
-                P=P, Q=Q, T=T, M=int(M),
-            )
-
-        # advance streaming state (host integers + history ring).  History
-        # stays a device array: no host sync on the async-dispatch path.
-        # The new T−1-sample tail is a pure SLICE of the already-built
-        # [hist | chunk] buffer (its first T−1+valid elements are exactly
-        # [hist | chunk[:valid]]) — rebuilding the concat cost a redundant
-        # full-chunk HBM pass per call (round-5 review find).
+            # buffer index 0 holds absolute input index in_consumed − (T−1);
+            # off0 is the buffer position of ⌊m0·Q/P⌋ − (T−1)
+            a1, a2 = (m0 * Q) % P, (m0 * Q) // P - self.in_consumed
         self.m_next = m0 + n_out
         self.in_consumed += int(valid)
-        if valid and T > 1:
-            self._hist_i = xi[..., valid:valid + T - 1]
-            self._hist_q = xq[..., valid:valid + T - 1]
-        return yi, yq, n_out
+        return a1, a2, n_out
+
+    def device_step(self, hist_i, hist_q, i, q, a1, a2, valid, M: int):
+        """Device half of :meth:`process`, pure: reads only the stage's
+        static shape and taps, never its stream state.
+
+        ``hist_i/hist_q`` ``(..., T−1)`` history, ``i/q`` ``(..., N)`` chunk,
+        ``a1/a2`` from :meth:`step_operands`, ``valid`` (int or traced int32)
+        the real input count.  Returns ``(yi, yq, new_hist_i, new_hist_q)``.
+        """
+        T, P, Q = self.T, self.P, self.Q
+        xi = jnp.concatenate([jnp.asarray(hist_i), jnp.asarray(i)], axis=-1)
+        xq = jnp.concatenate([jnp.asarray(hist_q), jnp.asarray(q)], axis=-1)
+        if self.impl == "conv":
+            _, _, K, PADZ, TAIL = conv_stream_geometry(
+                0, 0, M, int(np.shape(i)[-1]), P=P, Q=Q, T=T)
+            yi, yq = resample_conv_stream(
+                xi, xq, self._taps_mat, a1, a2,
+                P=P, Q=Q, T=T, K=K, M=M, PADZ=PADZ, TAIL=TAIL,
+            )
+        else:
+            yi, yq = _resample_kernel(xi, xq, self._bank_rev, a1, a2,
+                                      P=P, Q=Q, T=T, M=M)
+        # The new T−1-sample history is a pure SLICE of the [hist | chunk]
+        # buffer (its first T−1+valid elements are exactly
+        # [hist | chunk[:valid]]) — no second full-chunk concat.
+        hi = jax.lax.dynamic_slice_in_dim(xi, valid, T - 1, axis=-1)
+        hq = jax.lax.dynamic_slice_in_dim(xq, valid, T - 1, axis=-1)
+        return yi, yq, hi, hq
 
     # -- checkpointing ------------------------------------------------------
 
@@ -344,22 +362,24 @@ def resample_oracle(x: np.ndarray, P: int, Q: int, bank: np.ndarray) -> np.ndarr
 
     Produces every output whose newest input exists; out-of-range (negative)
     taps read zeros, matching the streaming implementation's zero history.
+    Evaluated in complex128 over windows gathered in bounded batches, so
+    it scores streams of many seconds.
     """
-    x = np.asarray(x)
+    x = np.asarray(x, dtype=np.complex128)
+    bank = np.asarray(bank, dtype=np.float64)
     T = bank.shape[1]
     n_out = (len(x) * P + Q - 1) // Q  # m with floor(mQ/P) <= len(x)-1
     while n_out > 0 and (n_out - 1) * Q // P > len(x) - 1:
         n_out -= 1
+    xp = np.concatenate([np.zeros(T - 1, dtype=np.complex128), x])
+    back = (T - 1) - np.arange(T)          # x[n − l] sits at xp[n + T−1 − l]
     y = np.zeros(n_out, dtype=np.complex128)
-    for m in range(n_out):
-        n = (m * Q) // P
-        p = (m * Q) % P
-        acc = 0.0 + 0.0j
-        for l in range(T):
-            k = n - l
-            if k >= 0:
-                acc += float(bank[p, l]) * complex(x[k])
-        y[m] = acc
+    step = max(1, (1 << 22) // T)
+    for lo in range(0, n_out, step):
+        m = np.arange(lo, min(n_out, lo + step), dtype=np.int64)
+        n, p = (m * Q) // P, (m * Q) % P
+        y[lo:lo + m.size] = np.einsum(
+            "ml,ml->m", bank[p], xp[n[:, None] + back[None, :]])
     return y
 
 
@@ -368,7 +388,7 @@ def make_taps_matrix(bank: np.ndarray, P: int, Q: int) -> np.ndarray:
 
     ``taps_mat[j, p] = bank_rev[(pQ) mod P, j − ⌊pQ/P⌋]`` (zero outside the
     tap range): output m = i·P + p is then ``Σ_j x[iQ + j] · taps_mat[j, p]``
-    over the strided window row — one MXU matmul for all phases at once.
+    over the strided window row — one matmul for all phases at once.
     """
     T = bank.shape[1]
     bank_rev = bank[:, ::-1]
@@ -382,7 +402,7 @@ def make_taps_matrix(bank: np.ndarray, P: int, Q: int) -> np.ndarray:
 
 @partial(jax.jit, static_argnames=("P", "Q", "T"))
 def resample_conv_block(xi, xq, taps_mat, *, P: int, Q: int, T: int):
-    """Windows + matmul resampler — the TPU fast path (MXU).
+    """Windows + matmul resampler for a chunk at alignment 0.
 
     Mathematically identical to the gather kernel for window alignment 0:
     ``xi/xq`` are ``(..., H + N)`` with ``H = T−1`` history samples
@@ -392,7 +412,7 @@ def resample_conv_block(xi, xq, taps_mat, *, P: int, Q: int, T: int):
     Output m = i·P + p needs inputs ``x_phys[iQ + j]`` for j < Q−1+T — rows
     of a stride-Q unfold of the input.  The unfold is R+1 shifted reshapes
     (regular memory, no gather, no strided conv lowering), and all P phases
-    reduce in a single ``(K, W_len) @ (W_len, P)`` matmul on the MXU.
+    reduce in a single ``(K, W_len) @ (W_len, P)`` matmul.
     """
     H = T - 1
     N = xi.shape[-1] - H

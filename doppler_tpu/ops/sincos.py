@@ -1,9 +1,8 @@
 """Quarter-wave polynomial sincos on a Q0.24 phase word — THE framework NCO.
 
-One numerical definition of the corrector tone, shared by the XLA mixer
-(``ops.nco``) and the fused Pallas kernels (``ops.pallas.mixer`` /
-``ops.pallas.chain``): integer-exact quadrant folding from the top 2 phase
-bits plus a shared-x² polynomial pair on [0, π/2).
+One numerical definition of the corrector tone, used by every mixer program
+(``ops.nco``): integer-exact quadrant folding from the top 2 phase bits plus
+a shared-x² polynomial pair on [0, π/2).
 
 Why a polynomial instead of ``jnp.cos``/``jnp.sin``: libm transcendentals
 are *implementation-defined* — XLA picks different vectorized approximations
@@ -14,7 +13,7 @@ regardless of sharding, fusion, or batch shape, which is what makes the
 framework's sharding-equivalence contract *byte*-exact (SURVEY §4c) rather
 than merely SNR-exact.  Max error ≈ 4.9e-7 (≈2 ulp) — the same order as the
 libm calls, far below the reference's own f32 phase noise (SURVEY §3.4), and
-roughly half the VPU ops of two range-reduced transcendental calls.
+roughly half the ALU ops of two range-reduced transcendental calls.
 
 Replaces the reference's per-sample ``ccexpf`` C FFI (``src/complex.c:33-39``
 called from ``src/dsp.rs:122``) on both compute paths.
@@ -32,7 +31,7 @@ __all__ = ["sincos_q24_neg", "mix_tone"]
 
 def mix_tone(fi, fq, c, s):
     """``(fi·c − fq·s, fi·s + fq·c)`` — THE complex rotation, one definition
-    shared by every mixer path (XLA graph, Pallas mixer, Pallas chain).
+    shared by every mixer program (single stream, channel batch, sharded).
 
     Contraction boundary (VERDICT r2 #8, root-caused round 3): backends
     contract one of the multiplies into an FMA, and *which* one is a codegen
@@ -45,14 +44,13 @@ def mix_tone(fi, fq, c, s):
     - within ONE compiled program the result is deterministic, so every
       replay/checkpoint/chunk-split guarantee (same kernel, same shapes)
       stays bitwise;
-    - across differently shaped programs of the same math (streaming vs
-      channel-batched chain), isolated samples may differ by 1 ulp — every
-      such diff is provably an FMA-ambiguity of this expression
-      (tests/test_pallas_chain.py classifies each one against the four
-      possible contraction results);
-    - cross-shape *byte* equality where the framework promises it (sharded
-      vs unsharded, mesh fallback) is enforced by byte-level tests, which
-      would catch a backend whose contraction choice diverges there.
+    - across differently shaped programs of the same math (a single stream
+      vs a channel batch, C vs C/N channels per card), isolated samples may
+      differ by 1 ulp — ≤ 1 LSB after encode, lengths identical, which is
+      the contract the channel-sharded cascade is held to;
+    - cross-shape *byte* equality where the framework promises it (time-
+      sharded vs unsharded, mesh fallback) is enforced by byte-level tests,
+      which would catch a backend whose contraction choice diverges there.
     """
     return fi * c - fq * s, fi * s + fq * c
 
@@ -62,7 +60,7 @@ def sincos_q24_neg(q24):
 
     The negative angle matches the reference mixer's corrector
     ``exp(-i·2π·frac(r·n))`` (dsp.rs:121-122).  Runs on any backend —
-    pure elementwise jnp, Mosaic-safe (no uint32→f32 casts, no libm).
+    pure elementwise jnp (no uint32→f32 casts, no libm).
     """
     quad = q24 >> 22                                       # 0..3
     frac = (q24 & jnp.int32(0x3FFFFF)).astype(jnp.float32)
@@ -84,8 +82,7 @@ def sincos_q24_neg(q24):
     # bitwise-identical to the select-chain form (negation IS a sign-bit
     # flip in IEEE 754, including −0.0; pinned over all 2²⁴ phase words by
     # tests/test_nco.py::test_sincos_fold_bitwise_vs_select_chain) with a
-    # shorter critical path — measured 22.8 vs 22.3 GS/s on the chain-mix
-    # shape (v5e, best-of-10 interleaved; ≤ rig noise, never slower).
+    # shorter critical path.
     # cos θ picks ∓s_p on odd quadrants; its sign is −(quad∈{1,2}); the
     # returned −sin θ sign is −(quad∈{0,1}) — both fold into one XOR word.
     swap = (quad & jnp.int32(1)) == 1

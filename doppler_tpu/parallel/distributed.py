@@ -1,16 +1,19 @@
 """Multi-host initialization and stream partitioning.
 
-The reference is strictly single-process (SURVEY §2); pod-scale operation is
-designed from the north star instead — and designed around the framework's
+The reference is strictly single-process (SURVEY §2); multi-host operation
+is designed around the framework's
 central theorem: *every per-sample quantity is a pure function of absolute
 stream position* (NCO phase via the host-emulated counter, resampler
 alignment via Bresenham on absolute indices, FIR history via the T−1
 preceding samples).  "Resume = seek" therefore also means "distribute =
 seek": hosts split the capture by byte range, each seeds its state exactly
 at its boundary (``Pipeline.seek_to_block``) and reads its own T−1-sample
-history directly from the file — so the host axis needs **zero DCN
-traffic**, not even halo exchange.  Within a host, chips form the usual
-``(channel, time)`` mesh with ICI halos (``parallel.sharded``).
+history directly from the file — so the host axis needs **zero network
+traffic**, not even halo exchange.  Within a host, ONE process drives all
+of that host's cards as the usual ``(channel, time)`` mesh, joined all to
+all by NVLink (``parallel.sharded``).  A JAX process reserves most of a
+card's memory when it starts, so processes never share a card: run one
+process per host, or hand each process its own cards.
 
 - every host calls :func:`init` (a ``jax.distributed.initialize`` wrapper;
   on CPU backends it selects the gloo TCP collectives so the same topology
@@ -21,7 +24,7 @@ traffic**, not even halo exchange.  Within a host, chips form the usual
 - ``HostShard.byte_range`` turns the block range into input-file seek
   offsets so per-host readers are independent.
 
-Single-chip environments skip ``init`` entirely; everything else in the
+Single-host runs skip ``init`` entirely; everything else in the
 framework works unchanged.
 """
 

@@ -9,8 +9,9 @@ stream onto a 2-D logical mesh:
 - ``'channel'`` — shards independent satellite channels (the data-parallel
   analog; BASELINE configs 4-5).
 
-On real hardware lay 'time' along ICI-adjacent devices so halos ride ICI;
-'channel' needs no communication at all and can span DCN.
+The cards of one host are joined all to all (NVLink), so the layout
+follows the algorithm alone: 'channel' needs no communication at all, and
+'time' moves one O(taps) halo per shard per chunk.
 """
 
 from __future__ import annotations
@@ -28,9 +29,9 @@ def make_mesh(time: int = 1, channel: int = 1, devices=None) -> Mesh:
 
     Defaults to the *process-local* devices: under multi-host operation
     (``parallel.distributed.init``) each host runs its own mesh over its
-    own chips — the host axis is decomposed by stream/channel range
+    own cards — the host axis is decomposed by stream/channel range
     (``host_slice``), not by a global device mesh, so no collective ever
-    crosses DCN (see parallel/distributed.py).
+    crosses hosts (see parallel/distributed.py).
     """
     devices = list(devices if devices is not None else jax.local_devices())
     need = time * channel

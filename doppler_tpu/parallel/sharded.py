@@ -5,8 +5,8 @@ elementwise math, XLA partitions it with zero communication).  The
 resampler's gather needs T−1 input samples of *left-neighbor halo* at each
 time-shard boundary, exchanged with ``jax.lax.ppermute`` over the 'time'
 axis inside ``shard_map`` — the overlap-save analog of context-parallel
-boundary exchange (SURVEY §5 "long-context / sequence parallelism"), riding
-ICI on real hardware.
+boundary exchange (SURVEY §5 "long-context / sequence parallelism"), a
+neighbour copy over NVLink between the cards of one host.
 
 Alignment is arithmetic, not communicated: shard k owns inputs
 [k·N_loc, (k+1)·N_loc) and computes exactly the outputs m whose newest input
@@ -44,8 +44,6 @@ __all__ = [
     "shard_alignment",
     "make_wideband_mix_step",
     "make_wideband_stream_step",
-    "make_chain_stream_step",
-    "make_cascade_stream_step",
     "make_cascade_channels_step",
 ]
 
@@ -210,7 +208,7 @@ def shard_alignment(s_abs: int, n_loc: int, n_time: int, P_: int, Q_: int):
 
 def shard_conv_alignment(s_abs: int, n_loc: int, n_time: int,
                          P_: int, Q_: int):
-    """Host: per-time-shard (start0, p0) for the conv (banded-MXU) step.
+    """Host: per-time-shard (start0, p0) for the conv (banded-matmul) step.
 
     Same ownership rule as :func:`shard_alignment`; the two returned int32
     arrays feed :func:`doppler_tpu.ops.resample.resample_conv_stream`'s
@@ -305,7 +303,7 @@ def make_wideband_stream_step(mesh, *, intype: str, outtype: str, C: int,
     row [:, −1] is the next chunk's history.
 
     Interior shards receive their T−1-sample left halo from the time
-    neighbor via ``lax.ppermute`` (ICI on hardware); shard 0 uses the carried
+    neighbor via ``lax.ppermute``; shard 0 uses the carried
     history.  The resample itself is :func:`doppler_tpu.ops.resample
     .window_dot` — the identical graph the single-device streaming path
     runs, so mesh output is byte-identical to the unsharded run.
@@ -401,278 +399,73 @@ def make_wideband_stream_step(mesh, *, intype: str, outtype: str, C: int,
     return jax.jit(fn)
 
 
-def make_chain_stream_step(mesh, *, resampler, interpret: bool = False,
-                           intype: str = "i16", outtype: str = "i16"):
-    """Sharded *fused-Pallas-chain* step — ``--mesh`` + ``--impl pallas``.
+def make_cascade_channels_step(mesh, *, intype: str, outtype: str, C: int,
+                               resampler):
+    """Channel-sharded multi-stage cascade step — config 5's device program
+    under ``--mesh channel=N``.
 
-    Per time shard the device program IS the 10-GS/s-class fused chain
-    kernel (``ops.pallas.chain``): decode → NCO mix → polyphase resample →
-    encode in one Pallas launch, so a time-sharded run keeps the unsharded
-    per-chip rate instead of falling back to the XLA formulation.
+    Channels are independent, so each card decodes the shared wideband
+    chunk, mixes its own ``C/N`` channels and runs every cascade stage on
+    them; no collective runs in the step.  The time axis must be 1 (a
+    cascade is never time-sharded).
 
-    The chain's only sequential state is the T−1-sample *mixed* FIR carry.
-    Each shard reconstructs its entering carry without any mixed-sample
-    exchange protocol: the left neighbor's last block (raw i16 words + its
-    7 plan constants — the reference block contract, dsp.rs:117-134) is
-    passed right with ``lax.ppermute`` (ICI on hardware), and the receiving
-    shard replays it through a 1-block call of the *same* chain kernel,
-    discarding the resample output and keeping ``carry_out`` — the mixed
-    tail rows.  Because the replay runs identical kernel code on identical
-    inputs, the carry is bitwise what the unsharded kernel would have held
-    entering that block, so sharded output is byte-identical to the
-    unsharded ``--impl pallas`` run (pinned in tests/test_sharded_pipeline).
-    Shard 0 instead selects the streamed ``carry_in`` from the previous
-    chunk.  Replay cost: one extra block per shard per chunk (≈1/B_loc).
+    ``step(data, d_hi, …, t, *hists, *operands)`` where
 
-    ``step(words, d_hi, …, t, carry_in, taps)``:
+    - ``data``     : (B, L) i16 words / (B, L, 2) f32, replicated;
+    - plans        : (C, B) uint32, sharded ('channel', None);
+    - ``hists``    : per stage, (C, T−1) FIR history I then Q, sharded
+                     ('channel', None) — each card keeps its channels' state;
+    - ``operands`` : from ``MultiStageResampler.step_operands``, replicated.
 
-    - ``words``    : (B, L) i16 words, sharded ('time', None);
-    - plans        : (1, B) uint32, sharded ('channel', 'time');
-    - ``carry_in`` : (2, HBR, 128) f32 mixed carry entering the chunk,
-                     replicated (only shard 0 reads it);
-    - ``taps``     : :func:`ops.pallas.chain.make_chain_taps` output,
-                     replicated.
+    Returns ``(out, *new_hists)``: out is (C, M_last[, 2]) encoded samples
+    (slice the valid count on the host), new_hists the stages' histories
+    entering the next chunk, sharded like ``hists``.
 
-    Returns ``(out, carries)``: ``out`` (B, L·P/Q) i16 words sharded
-    ('time', None) — already in stream order — and ``carries``
-    (n_time, 2, HBR, 128); row [-1] is the next chunk's ``carry_in``.
+    Per stage the program is the stage's own
+    ``RationalResampler.device_step`` (the device half of ``process``),
+    fenced by ``optimization_barrier`` islands like
+    :func:`make_wideband_stream_step`, so the bytes match the unsharded
+    batched run to within the 1-LSB contraction tolerance of differently
+    batched programs (ops/sincos.py ``mix_tone``).
     """
-    from doppler_tpu.ops.pallas.chain import (
-        carry_rows,
-        mix_resample_chain_pallas_stream,
-    )
-
-    n_time = mesh.shape["time"]
-    Pr, Qr, T = resampler.P, resampler.Q, resampler.T
-    HBR = carry_rows(T)
-    planar_in = intype != "i16"     # f32 wire: (2, B, L) planar planes
-    planar_out = outtype != "i16"
-
-    def local(words, d_hi, d_lo, c1_hi, c1_lo, c2_hi, c2_lo, t,
-              carry_in, taps):
-        plans = (d_hi[0], d_lo[0], c1_hi[0], c1_lo[0],
-                 c2_hi[0], c2_lo[0], t[0])
-        if n_time > 1:
-            perm = [(k, k + 1) for k in range(n_time - 1)]
-            tail = words[:, -1:] if planar_in else words[-1:]
-            halo_w = lax.ppermute(tail, "time", perm=perm)
-            halo_p = [lax.ppermute(a[-1:], "time", perm=perm) for a in plans]
-            zero_c = jnp.zeros((2, HBR, 128), jnp.float32)
-            _, halo_carry = mix_resample_chain_pallas_stream(
-                halo_w, *halo_p, taps, zero_c,
-                P=Pr, Q=Qr, T=T, interpret=interpret,
-                intype=intype, outtype=outtype,
-            )
-            tidx = lax.axis_index("time")
-            carry = jnp.where(tidx == 0, carry_in, halo_carry)
-        else:
-            carry = carry_in
-        out, carry_out = mix_resample_chain_pallas_stream(
-            words, *plans, taps, carry,
-            P=Pr, Q=Qr, T=T, interpret=interpret,
-            intype=intype, outtype=outtype,
-        )
-        return out, carry_out[None]
-
-    data_spec = P(None, "time", None) if planar_in else P("time", None)
-    out_spec = P(None, "time", None) if planar_out else P("time", None)
-    fn = shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(data_spec,) + (P("channel", "time"),) * 7
-        + (P(), P()),
-        out_specs=(out_spec, P("time", None, None, None)),
-        # pallas_call outputs carry no varying-manual-axes metadata; the
-        # specs above are the full contract
-        check_vma=False,
-    )
-    return jax.jit(fn)
-
-
-def make_cascade_stream_step(mesh, *, resampler, taps, stages,
-                             interpret: bool = False,
-                             intype: str = "i16", outtype: str = "i16",
-                             final_dense: bool = False):
-    """Sharded *fused-cascade* step — ``--mesh`` + ``--impl pallas`` with a
-    multi-stage resampler (round 3; closes the "no sharded step yet"
-    fallback of VERDICT r2 #7).
-
-    Same halo-block replay as :func:`make_chain_stream_step`, generalized
-    to per-stage carries: each shard receives its left neighbor's last raw
-    block + plan constants over ``ppermute`` and replays it through a
-    1-block call of the same cascade kernel with zero carries, keeping ALL
-    per-stage carries.  One block suffices because every stage's carry cone
-    (``carry_rows·128`` samples at the stage rate, input-referred) plus the
-    zero-history corrupt head fits inside it — the same bound
-    ``Pipeline._seek_cascade`` checks, and the same bitwise argument: the
-    kernel's per-output accumulation is position-independent, so carry rows
-    computed from identical in-block windows are identical
-    (tests/test_sharded_pipeline.py pins sharded == unsharded bytes).
-
-    ``taps``/``stages`` are the host-built per-stage tuples
-    (:func:`ops.pallas.chain.make_chain_taps` with ``pp=P`` inner stages);
-    they close over the step.  ``step(words, d_hi, …, t, *carries)`` returns
-    ``(out, *per_stage_carries)`` with each carry ``(n_time, 2, HBR_s, 128)``
-    — row [-1] seeds the next chunk.
-    """
-    from doppler_tpu.ops.pallas.chain import (
-        cascade_replay_need,
-        mix_cascade_pallas_stream,
-        taps_shapes,
-        widen_replay_span,
-    )
-
-    n_time = mesh.shape["time"]
-    nstg = len(stages)
-    planar_in = intype != "i16"
-    planar_out = outtype != "i16"
-    stage_shapes = taps_shapes(stages, taps)
-    # replay span: zero-history corrupt head + deepest FUSED stage's carry
-    # cone (input-referred), in whole blocks — 1 at the reference
-    # L=8192/i16, more for small blocks (f32's L=1024).  With
-    # ``final_dense`` (split cascade) only the fused front's stages carry
-    # state here; the XLA tail keeps its own host-side history.
-    need = cascade_replay_need(resampler.stages[:nstg], resampler.in_rate)
-
-    def local(words, d_hi, d_lo, c1_hi, c1_lo, c2_hi, c2_lo, t, *carries_in):
-        plans = (d_hi[0], d_lo[0], c1_hi[0], c1_lo[0],
-                 c2_hi[0], c2_lo[0], t[0])
-        L = words.shape[-1]
-        b_loc = words.shape[1] if planar_in else words.shape[0]
-        # widen the replay span past the cone until the step geometry
-        # validates (large stage factors need A divisible by D, which can
-        # take more rows than the cone itself — e.g. ÷16 stages at the
-        # config-5 rate); extra REAL blocks only add correct history, so
-        # the carries stay bitwise
-        r_h = widen_replay_span(need, L, b_loc, stage_shapes,
-                                final_dense=final_dense)
-        if n_time > 1:
-            perm = [(k, k + 1) for k in range(n_time - 1)]
-            tail = words[:, -r_h:] if planar_in else words[-r_h:]
-            halo_w = lax.ppermute(tail, "time", perm=perm)
-            halo_p = [lax.ppermute(a[-r_h:], "time", perm=perm)
-                      for a in plans]
-            zeros = tuple(jnp.zeros_like(c) for c in carries_in)
-            _, halo_carries = mix_cascade_pallas_stream(
-                halo_w, *halo_p, taps, zeros, stages=stages,
-                interpret=interpret,
-                intype=intype, outtype=outtype, final_dense=final_dense,
-            )
-            tidx = lax.axis_index("time")
-            carries = tuple(
-                jnp.where(tidx == 0, cin, hc)
-                for cin, hc in zip(carries_in, halo_carries)
-            )
-        else:
-            carries = tuple(carries_in)
-        out, carries_out = mix_cascade_pallas_stream(
-            words, *plans, taps, carries, stages=stages,
-            interpret=interpret, intype=intype, outtype=outtype,
-            final_dense=final_dense,
-        )
-        return (out,) + tuple(c[None] for c in carries_out)
-
-    data_spec = P(None, "time", None) if planar_in else P("time", None)
-    out_spec = P(None, "time", None) if planar_out else P("time", None)
-    fn = shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(data_spec,) + (P("channel", "time"),) * 7
-        + (P(),) * nstg,
-        out_specs=(out_spec,) + (P("time", None, None, None),) * nstg,
-        check_vma=False,
-    )
-    return jax.jit(fn)
-
-
-def make_cascade_channels_step(mesh, *, resampler, taps, stages, C,
-                               interpret: bool = False,
-                               intype: str = "i16", outtype: str = "i16",
-                               final_dense: bool = False):
-    """Sharded *channel-batched* fused-cascade step — channels ``--mesh``
-    with a multi-stage resampler over a ``(channel, time)`` mesh (round 4,
-    VERDICT r3 next #5; BASELINE config 5's topology: C channels × time ×
-    cascade).
-
-    The wideband raw chunk is time-sharded and replicated over the channel
-    axis; plans ``(C, B)`` and per-stage carries ``(C, 2, HBR_s, 128)``
-    shard over 'channel'.  Each time shard reconstructs its entering
-    per-stage carries with the same raw-block halo replay as
-    :func:`make_cascade_stream_step` — the left neighbor's last blocks +
-    plan tails ride ``lax.ppermute``, replayed through a channel-batched
-    call of the SAME cascade kernel with zero carries — then runs
-    :func:`~doppler_tpu.ops.pallas.chain.mix_cascade_pallas_channels` on
-    its local blocks.  ``final_dense`` passes the split-cascade front
-    through (``outtype='f32'`` planes out; the caller runs the batched XLA
-    tail on the gathered planes at 1/2^k of the input rate).
-
-    ``step(words, d_hi…t, *carries)`` → ``(out, *per_stage_carries)`` with
-    carries ``(n_time, C, 2, HBR_s, 128)``; row [-1] seeds the next chunk.
-    """
-    from doppler_tpu.ops.pallas.chain import (
-        cascade_replay_need,
-        mix_cascade_pallas_channels,
-        taps_shapes,
-        widen_replay_span,
-    )
-
-    n_time = mesh.shape["time"]
-    n_chan = mesh.shape.get("channel", 1)
+    n_chan = mesh.shape["channel"]
+    if mesh.shape["time"] != 1:
+        raise ValueError("a multi-stage cascade cannot be time-sharded")
     if C % n_chan:
         raise ValueError(f"channels {C} must divide over mesh channel={n_chan}")
-    nstg = len(stages)
-    planar_in = intype != "i16"
-    planar_out = outtype != "i16"
-    # replay span: zero-history corrupt head of the fused front + deepest
-    # fused stage's carry cone, input-referred, in whole blocks
-    need = cascade_replay_need(resampler.stages[:nstg], resampler.in_rate)
-    stage_shapes = taps_shapes(stages, taps)
+    C_loc = C // n_chan
+    stages = resampler.stages
+    # time is 1: the chunk is replicated and plans shard over channels only
+    out_spec = (P("channel", None) if outtype == "i16"
+                else P("channel", None, None))
+    hist_spec = P("channel", None)
+    n_st = len(stages)
 
-    def local(words, d_hi, d_lo, c1_hi, c1_lo, c2_hi, c2_lo, t,
-              *carries_in):
-        fields_loc = jnp.stack(
-            [d_hi, d_lo, c1_hi, c1_lo, c2_hi, c2_lo, t])   # (7, C_loc, B_loc)
-        L = words.shape[-1]
-        b_loc = words.shape[1] if planar_in else words.shape[0]
-        # widen the replay span until the step geometry validates (see
-        # make_cascade_stream_step — extra real blocks stay bitwise)
-        r_h = widen_replay_span(need, L, b_loc, stage_shapes,
-                                final_dense=final_dense)
-        if n_time > 1:
-            perm = [(k, k + 1) for k in range(n_time - 1)]
-            tail = words[:, -r_h:] if planar_in else words[-r_h:]
-            halo_w = lax.ppermute(tail, "time", perm=perm)
-            halo_f = lax.ppermute(fields_loc[:, :, -r_h:], "time", perm=perm)
-            zeros = tuple(jnp.zeros_like(c) for c in carries_in)
-            _, halo_carries = mix_cascade_pallas_channels(
-                halo_w, halo_f, taps, zeros, stages=stages,
-                interpret=interpret, intype=intype, outtype=outtype,
-                final_dense=final_dense)
-            tidx = lax.axis_index("time")
-            carries = tuple(
-                jnp.where(tidx == 0, cin, hc)
-                for cin, hc in zip(carries_in, halo_carries)
-            )
+    def local(data, d_hi, d_lo, c1_hi, c1_lo, c2_hi, c2_lo, t, *rest):
+        hists, ops = rest[:2 * n_st], rest[2 * n_st:]
+        i, q = _decode_broadcast(data, C_loc, intype)
+        i, q = nco.mix_blocks(i, q, d_hi, d_lo, c1_hi, c1_lo, c2_hi, c2_lo, t)
+        pairs = jax.lax.optimization_barrier(jnp.stack([i, q], axis=-1))
+        planar = pairs.reshape(C_loc, -1, 2)
+        yi, yq = planar[..., 0], planar[..., 1]
+        new_hists = []
+        for s, st in enumerate(stages):
+            a1, a2, valid = ops[3 * s:3 * s + 3]
+            yi, yq, hi, hq = st.device_step(
+                hists[2 * s], hists[2 * s + 1], yi, yq, a1, a2, valid,
+                st.max_out_for(yi.shape[-1]))
+            yi, yq = jax.lax.optimization_barrier((yi, yq))
+            new_hists += [hi, hq]
+        if outtype == "i16":
+            out = codec.iq_to_i16_words(yi, yq)
         else:
-            carries = tuple(carries_in)
-        out, carries_out = mix_cascade_pallas_channels(
-            words, fields_loc, taps, carries, stages=stages,
-            interpret=interpret, intype=intype, outtype=outtype,
-            final_dense=final_dense)
-        return (out,) + tuple(c[None] for c in carries_out)
+            out = jnp.stack([yi, yq], axis=-1)
+        return (out, *new_hists)
 
-    data_spec = P(None, "time", None) if planar_in else P("time", None)
-    out_spec = (
-        P(None, "channel", "time", None) if planar_out
-        else P("channel", "time", None)
-    )
     fn = shard_map(
         local,
         mesh=mesh,
-        in_specs=(data_spec,) + (P("channel", "time"),) * 7
-        + (P("channel", None, None, None),) * nstg,
-        out_specs=(out_spec,)
-        + (P("time", "channel", None, None, None),) * nstg,
-        check_vma=False,
+        in_specs=(P(),) + (hist_spec,) * (7 + 2 * n_st) + (P(),) * (3 * n_st),
+        out_specs=(out_spec,) + (hist_spec,) * (2 * n_st),
     )
     return jax.jit(fn)

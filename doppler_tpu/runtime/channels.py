@@ -7,8 +7,8 @@ downlinks; each channel c gets its own correction chain
 
 run as ONE batched device computation over a ``(C, B, L)`` array — the
 channel axis is embarrassingly parallel (SURVEY §2 "channel parallelism")
-and is exactly the axis the ``parallel`` package shards over a mesh for
-pod-scale runs.
+and is exactly the axis the ``parallel`` package shards over the cards of
+a ``--mesh channel=N`` run.
 
 Host-side per channel: an independent Doppler scheduler (const or TLE track)
 and an independent samplenum-emulation state; the channel's center offset is
@@ -38,11 +38,9 @@ from doppler_tpu.ops.phase_plan import (
 from doppler_tpu.ops.resample import RationalResampler
 from doppler_tpu.runtime import stream as streaming
 from doppler_tpu.runtime.pipeline import ConstScheduler, Scheduler
-from doppler_tpu.runtime.telemetry import Counters, get_logger
+from doppler_tpu.runtime.telemetry import Counters
 
 __all__ = ["ChannelSpec", "MultiChannelPipeline", "load_channel_config"]
-
-log = get_logger("channels")
 
 
 @dataclass
@@ -99,23 +97,12 @@ class MultiChannelPipeline:
         chunk_blocks: int = 64,
         quantize_ratio_f32: bool = True,
         reset_quirk: bool = True,
-        impl: str = "xla",
-        pallas_interpret: bool = False,
         mesh=None,
         drain_on_eof: bool = False,
         resample_stages: str = "single",
-        precision: str = "exact",
     ):
         if not channels:
             raise ValueError("need at least one channel")
-        if precision not in ("exact", "fast"):
-            raise ValueError(
-                f"precision must be 'exact' or 'fast', got {precision!r}")
-        # 'fast' = split3 on the channel-batched single-stage chain kernel
-        # (measured 17.0 vs 15.8 GS/s ch-samples best-of-10 interleaved,
-        # ~90 dB / ≤1 LSB vs exact); cascade and sharded paths keep the
-        # exact formulation (cascade measured no gain; mesh byte contract)
-        self._chain_dot = "split3" if precision == "fast" else "highest"
         self.drain_on_eof = drain_on_eof
         self._drained = False  # did THIS run flush the FIR tails? (ckpt)
         self.samples_in = 0     # absolute input samples consumed (checkpoint)
@@ -151,34 +138,17 @@ class MultiChannelPipeline:
         self.resampler = (
             self._groups[0][1] if len(self._groups) == 1 else None
         )
-        self._uniform = len(self._groups) == 1
-        if impl not in ("xla", "pallas"):
-            raise ValueError(f"impl must be 'xla' or 'pallas', got {impl!r}")
-        self.impl = impl
-        self.pallas_interpret = pallas_interpret
-        self._chain_carries = None    # per-channel fused-chain FIR carries
-        self._chain_taps = None
-        self._cascade_carries = None  # per-channel per-stage cascade carries
-        self._cascade_taps = None
-        self._cascade_w = "unset"
-        self._cascade_k = None        # fused-stage count (split point)
 
-        # --mesh: channels × time-blocks SPMD (BASELINE config 5 topology).
-        # Byte contract (ADVICE r4 qualification): the mix-only and
+        # --mesh: channels × time-blocks SPMD (BASELINE config 5 topology),
+        # dispatched per rate GROUP.  Byte contract: the mix-only and
         # single-stage sharded steps match the unsharded run exactly; the
-        # sharded channel-batched CASCADE batches C_loc ≠ C channels
-        # across the XLA:CPU mix_tone contraction boundary, so on the CPU
-        # interpreter (tests, dryrun) it is pinned to ≤1 LSB vs unsharded
-        # (test_mesh_channels_cascade_and_split) — on real TPU Mosaic the
-        # per-channel programs are the same kernel and bytes are expected
-        # exact, but that is asserted by design argument, not CI (needs
-        # hardware; add a TPU-marked byte test when a chip mesh exists).
-        # Round 4: mixed per-channel rates dispatch per rate GROUP, and
-        # multi-stage cascades run the sharded channel-batched fused step.
+        # channel-sharded CASCADE step batches C_loc ≠ C channels across
+        # the mix_tone contraction boundary (ops/sincos.py), so it is
+        # pinned to ≤1 LSB with identical lengths
+        # (tests/test_sharded_pipeline.py).  A layout no sharded step
+        # covers is refused here rather than run on one device.
         self.mesh = mesh
         self._sharded_steps: dict = {}       # (kind, group) → jitted step
-        self._sharded_casc_cfg: dict = {}    # group → cascade cfg or None
-        self._warned: set = set()
         if mesh is not None:
             C = len(channels)
             n_chan = mesh.shape.get("channel", 1)
@@ -193,8 +163,20 @@ class MultiChannelPipeline:
                     f"mesh time={n_time}"
                 )
             n_loc = self.chunk_blocks * self.block_samples // n_time
-            for _, rs in self._groups:
-                if rs is None or getattr(rs, "bank", None) is None:
+            for idxs, rs in self._groups:
+                if len(idxs) % n_chan:
+                    raise ValueError(
+                        f"a rate group of {len(idxs)} channels must divide "
+                        f"over mesh channel={n_chan}")
+                if rs is None:
+                    continue
+                if getattr(rs, "bank", None) is None:
+                    if n_time > 1:
+                        raise ValueError(
+                            f"a multi-stage resampler cannot be "
+                            f"time-sharded (--mesh time={n_time}); use "
+                            f"--resample-stages single, or --mesh "
+                            f"channel=N only")
                     continue
                 if rs.T - 1 > n_loc:
                     raise ValueError(
@@ -205,11 +187,6 @@ class MultiChannelPipeline:
                     raise ValueError(
                         "time shard too large for 32-bit phase math"
                     )
-
-    def _warn_once(self, msg: str) -> None:
-        if msg not in self._warned:
-            self._warned.add(msg)
-            log.warning(msg)
 
     def _plan_all(self, counts):
         C = len(self.channels)
@@ -306,13 +283,6 @@ class MultiChannelPipeline:
             if sharded is not None:
                 return sharded
 
-        chain_out = self._try_chain(staged, fields, total, chunk.data)
-        if chain_out is not None:
-            return chain_out
-        cascade_out = self._try_cascade(staged, fields, total, chunk.data)
-        if cascade_out is not None:
-            return cascade_out
-
         no_resampling = all(rs is None for _, rs in self._groups)
         mix_outtype = self.outtype if no_resampling else "f32"
         out = _channels_mix_kernel(
@@ -336,9 +306,6 @@ class MultiChannelPipeline:
             return fin_mix
 
         planar = out.reshape(C, -1, 2)
-        # any future fused chunk must reseed its carries from rs history
-        self._chain_carries = None
-        self._cascade_carries = None
         deferred = []                 # (idxs, lazy device enc, n_out)
         for idxs, rs in self._groups:
             sel = jnp.asarray(idxs)
@@ -363,60 +330,12 @@ class MultiChannelPipeline:
             return outs
         return fin_groups
 
-    def _casc_group_cfg(self, g: int, rs):
-        """Cached per-group fused-cascade config for the sharded step:
-        ``(taps, stages_cfg, k, dense)`` or None when the per-shard
-        geometry cannot run the channel-batched cascade kernel."""
-        cfg = self._sharded_casc_cfg.get(g, "unset")
-        if cfg != "unset":
-            return cfg
-        from doppler_tpu.ops.pallas.chain import (
-            cascade_replay_need,
-            front_taps,
-            pick_cascade_blocks_per_step,
-            split_point,
-            taps_shapes,
-            widen_replay_span,
-        )
-
-        B, L = self.chunk_blocks, self.block_samples
-        n_time = self.mesh.shape["time"]
-        cfg = None
-        k = split_point(rs.stages)
-        if L % 128 == 0 and B % n_time == 0 and k > 0:
-            dense = k < len(rs.stages)
-            try:
-                taps = tuple(
-                    jnp.asarray(tp) for tp in front_taps(rs.stages, k))
-                shapes = taps_shapes(rs.stages, taps)
-                fused = rs.stages[:k]
-                need = cascade_replay_need(fused, self.samplerate)
-                b_loc = B // n_time
-                # replay span widened until the step geometry validates
-                # (matches make_cascade_channels_step's own search)
-                r_h = widen_replay_span(need, L, b_loc, shapes,
-                                        final_dense=dense)
-                ok = (
-                    pick_cascade_blocks_per_step(
-                        b_loc, L, shapes, final_dense=dense) is not None
-                    and r_h <= b_loc
-                )
-                if ok:
-                    stages_cfg = tuple((st.P, st.Q, st.T) for st in fused)
-                    cfg = (taps, stages_cfg, k, dense)
-            except ValueError:
-                cfg = None
-        self._sharded_casc_cfg[g] = cfg
-        return cfg
-
     def _process_chunk_sharded(self, staged, fields, total: int):
         """--mesh device step: channels × time shard_map over the wideband
-        chunk, dispatched PER RATE GROUP (round 4: mixed per-channel rates
-        and multi-stage cascades now run sharded — VERDICT r3 next #5).
-        Returns per-channel bytes, or None to fall through to the unsharded
-        path (per-shard geometry ineligibility, or — with a resampler —
-        the partial EOF chunk, which runs single-device off the
-        mesh-maintained history so bytes stay identical)."""
+        chunk, dispatched PER RATE GROUP.  Returns per-channel bytes, or
+        None to fall through to the unsharded path for the partial EOF
+        chunk of a resampled run, which runs single-device off the
+        mesh-maintained history so bytes stay identical."""
         from jax.sharding import NamedSharding, PartitionSpec as Spec
 
         from doppler_tpu.parallel.sharded import (
@@ -429,25 +348,8 @@ class MultiChannelPipeline:
         C = len(self.channels)
         B, L = self.chunk_blocks, self.block_samples
         n_time = self.mesh.shape["time"]
-        n_chan = self.mesh.shape.get("channel", 1)
-        any_rs = any(rs is not None for _, rs in self._groups)
-        if any_rs and total != B * L:
+        if total != B * L and any(rs is not None for _, rs in self._groups):
             return None                      # partial tail → exact fallback
-        for g, (idxs, rs) in enumerate(self._groups):
-            if len(idxs) % n_chan:
-                self._warn_once(
-                    f"mesh mode: group of {len(idxs)} channels does not "
-                    f"divide over mesh channel={n_chan} — running unsharded")
-                return None
-            if rs is not None and getattr(rs, "bank", None) is None:
-                # the sharded cascade step IS the Pallas kernel — XLA-impl
-                # runs keep the unsharded XLA cascade (exact program match)
-                if (self.impl != "pallas"
-                        or self._casc_group_cfg(g, rs) is None):
-                    self._warn_once(
-                        "mesh mode: this cascade cannot run the sharded "
-                        "fused step (geometry/impl) — running unsharded")
-                    return None
 
         data_spec = (
             Spec("time", None) if self.intype == "i16"
@@ -456,23 +358,22 @@ class MultiChannelPipeline:
         data = jax.device_put(
             jnp.asarray(staged), NamedSharding(self.mesh, data_spec)
         )
-        planar = None
-        if any(rs is not None and getattr(rs, "bank", None) is None
-               for _, rs in self._groups):
-            # cascade groups take the planar Pallas wire layout for f32
-            if self.intype == "f32":
-                planar = jax.device_put(
-                    jnp.asarray(self._stage_planar_from_staged(staged)),
-                    NamedSharding(self.mesh, Spec(None, "time", None)),
-                )
-            else:
-                planar = data
         plan_sh = NamedSharding(self.mesh, Spec("channel", "time"))
+        hist_sh = NamedSharding(self.mesh, Spec("channel", None))
 
         def to_bytes(row) -> bytes:
             if self.outtype == "i16":
                 return codec.i16_words_to_bytes(row)
             return codec.f32_pairs_to_bytes(row)
+
+        def step_for(kind, g, make, **kw):
+            step = self._sharded_steps.get((kind, g))
+            if step is None:
+                step = make(self.mesh, intype=self.intype,
+                            outtype=self.outtype, C=len(self._groups[g][0]),
+                            **kw)
+                self._sharded_steps[(kind, g)] = step
+            return step
 
         deferred = []                 # (idxs, closure → list[bytes] per row)
         for g, (idxs, rs) in enumerate(self._groups):
@@ -480,13 +381,7 @@ class MultiChannelPipeline:
             fg = np.ascontiguousarray(fields[:, idxs, :])
             plans = [jax.device_put(jnp.asarray(a), plan_sh) for a in fg]
             if rs is None:
-                step = self._sharded_steps.get(("mix", g))
-                if step is None:
-                    step = make_wideband_mix_step(
-                        self.mesh, intype=self.intype,
-                        outtype=self.outtype, C=C_g)
-                    self._sharded_steps[("mix", g)] = step
-                out = step(data, *plans)
+                out = step_for("mix", g, make_wideband_mix_step)(data, *plans)
 
                 def fin_mix(out=out, C_g=C_g):
                     if self.outtype == "i16":
@@ -496,16 +391,11 @@ class MultiChannelPipeline:
                     return [to_bytes(flat[row]) for row in range(C_g)]
                 deferred.append((idxs, fin_mix))
             elif getattr(rs, "bank", None) is not None:
-                step = self._sharded_steps.get(("rs", g))
-                if step is None:
-                    step = make_wideband_stream_step(
-                        self.mesh, intype=self.intype,
-                        outtype=self.outtype, C=C_g, resampler=rs)
-                    self._sharded_steps[("rs", g)] = step
+                step = step_for("rs", g, make_wideband_stream_step,
+                                resampler=rs)
                 rem, off, out_counts = stream_step_alignment(
                     rs, rs.in_consumed, B * L // n_time, n_time
                 )
-                hist_sh = NamedSharding(self.mesh, Spec("channel", None))
                 hist_i = jax.device_put(jnp.asarray(rs._hist_i), hist_sh)
                 hist_q = jax.device_put(jnp.asarray(rs._hist_q), hist_sh)
                 out, tail_i, tail_q = step(
@@ -525,12 +415,21 @@ class MultiChannelPipeline:
                     return [to_bytes(flat[row]) for row in range(C_g)]
                 deferred.append((idxs, fin_rs))
             else:
-                fin_casc = self._sharded_cascade_group(
-                    g, rs, idxs, planar, plans, total,
-                    make_cascade_channels_step)
+                step = step_for("casc", g, make_cascade_channels_step,
+                                resampler=rs)
+                hists = [jax.device_put(jnp.asarray(h), hist_sh)
+                         for st in rs.stages
+                         for h in (st._hist_i, st._hist_q)]
+                ops, n_out = rs.step_operands(total, B * L)
+                out, *new_hists = step(data, *plans, *hists,
+                                       *(jnp.asarray(o) for o in ops))
+                for s, st in enumerate(rs.stages):
+                    st._hist_i, st._hist_q = new_hists[2 * s:2 * s + 2]
+
+                def fin_casc(out=out, n_out=n_out, C_g=C_g):
+                    flat = np.asarray(out)[:, :n_out]
+                    return [to_bytes(flat[row]) for row in range(C_g)]
                 deferred.append((idxs, fin_casc))
-        self._chain_carries = None
-        self._cascade_carries = None
 
         def finalize():
             outs: list[bytes] = [b""] * C
@@ -540,292 +439,6 @@ class MultiChannelPipeline:
                     outs[cidx] = vals[row]
             return outs
         return finalize
-
-    def _stage_planar_from_staged(self, staged):
-        """Interleaved (B, L, 2) f32 staging → planar (2, B, L)."""
-        return np.ascontiguousarray(np.moveaxis(staged, -1, 0))
-
-    def _sharded_cascade_group(self, g, rs, idxs, data, plans, total,
-                               make_step):
-        """One rate group's sharded fused-cascade chunk (full or split)."""
-        from jax.sharding import NamedSharding, PartitionSpec as Spec
-
-        from doppler_tpu.ops.pallas.chain import carry_rows
-
-        taps, stages_cfg, k, dense = self._sharded_casc_cfg[g]
-        C_g = len(idxs)
-        step = self._sharded_steps.get(("casc", g))
-        if step is None:
-            step = make_step(
-                self.mesh, resampler=rs, taps=taps, stages=stages_cfg,
-                C=C_g, interpret=self.pallas_interpret,
-                intype=self.intype,
-                outtype="f32" if dense else self.outtype,
-                final_dense=dense)
-            self._sharded_steps[("casc", g)] = step
-        # reseed carries from each fused stage's batched FIR history —
-        # bitwise-equivalent to chaining device carries (only the last
-        # T−1 samples are read; the zero prefix meets structural taps
-        # zeros), and it keeps the sharded path checkpoint-interoperable
-        carr_sh = NamedSharding(self.mesh, Spec("channel", None, None, None))
-        carries = []
-        for st in rs.stages[:k]:
-            hbr = carry_rows(st.T)
-            h = st.T - 1
-            flat = jnp.zeros((C_g, 2, hbr * 128), jnp.float32)
-            if h > 0:
-                flat = flat.at[:, 0, hbr * 128 - h:].set(
-                    jnp.asarray(st._hist_i))
-                flat = flat.at[:, 1, hbr * 128 - h:].set(
-                    jnp.asarray(st._hist_q))
-            carries.append(jax.device_put(
-                flat.reshape(C_g, 2, hbr, 128), carr_sh))
-        res = step(data, *plans, *carries)
-        out, carries_nt = res[0], res[1:]
-        n_in = total
-        for st, cnt in zip(rs.stages[:k], carries_nt):
-            n_out_s = st.out_count_for(n_in)
-            st.m_next += n_out_s
-            st.in_consumed += n_in
-            h = st.T - 1
-            flat_c = cnt[-1].reshape(C_g, 2, -1)
-            st._hist_i = flat_c[:, 0, -h:]
-            st._hist_q = flat_c[:, 1, -h:]
-            n_in = n_out_s
-        if not dense:
-            def fin_full(out=out, n_in=n_in, C_g=C_g):
-                host = np.asarray(out)
-                if self.outtype == "i16":
-                    host = host.reshape(C_g, -1)[:, :n_in]
-                    return [codec.i16_words_to_bytes(host[c])
-                            for c in range(C_g)]
-                from doppler_tpu.runtime import native
-
-                host = host.reshape(2, C_g, -1)
-                return [
-                    codec.f32_pairs_to_bytes(native.planar_to_f32_pairs(
-                        host[0, c, :n_in], host[1, c, :n_in]))
-                    for c in range(C_g)
-                ]
-            return fin_full
-        # split: gathered front planes → batched XLA tail at 1/2^k rate
-        planes = out.reshape(2, C_g, -1)
-        yi, yq = planes[0], planes[1]
-        for st in rs.stages[k:]:
-            cap = int(yi.shape[-1])
-            yi, yq, n_in = st.process(yi, yq, n_in, M=st.max_out_for(cap))
-        enc = _encode_kernel(yi, yq, outtype=self.outtype)
-
-        def fin_split(enc=enc, n_in=n_in, C_g=C_g):
-            host = np.asarray(enc)
-            if self.outtype == "i16":
-                return [codec.i16_words_to_bytes(host[c, :n_in])
-                        for c in range(C_g)]
-            return [codec.f32_pairs_to_bytes(host[c, :n_in])
-                    for c in range(C_g)]
-        return fin_split
-
-    def _stage_planar(self, data: bytes):
-        """Raw f32 chunk bytes → planar ``(2, B, L)`` planes (the Pallas
-        wire layout, mirroring Pipeline._stage_in(planar=True))."""
-        from doppler_tpu.runtime import native
-
-        B, L = self.chunk_blocks, self.block_samples
-        pairs = codec.bytes_to_f32_pairs(data)
-        flat = np.zeros((2, B * L), dtype="<f4")
-        native.f32_pairs_to_planar_into(pairs, flat[0], flat[1])
-        return flat.reshape(2, B, L)
-
-    def _emit_channel_bytes(self, out, n_out: int):
-        """Device output → per-channel byte strings.
-
-        ``out``: (C, B, M) i16 words or (2, C, B, M) f32 planes."""
-        return self._emit_channel_bytes_lazy(out, n_out)()
-
-    def _emit_channel_bytes_lazy(self, out, n_out: int):
-        """Deferred form of :meth:`_emit_channel_bytes` — captures the lazy
-        device array; the returned closure performs the only blocking sync
-        (np.asarray), so dispatch paths can hand it to ``run()``'s 1-deep
-        pipeline."""
-        def fin():
-            from doppler_tpu.runtime import native
-
-            C = len(self.channels)
-            if self.outtype == "i16":
-                host = np.asarray(out).reshape(C, -1)[:, :n_out]
-                return [codec.i16_words_to_bytes(host[c]) for c in range(C)]
-            host = np.asarray(out).reshape(2, C, -1)
-            return [
-                codec.f32_pairs_to_bytes(native.planar_to_f32_pairs(
-                    host[0, c, :n_out], host[1, c, :n_out]))
-                for c in range(C)
-            ]
-        return fin
-
-    def _try_chain(self, staged, fields, total: int, data: bytes):
-        """Fused Pallas chain per channel (impl='pallas', uniform-rate
-        captures, all four wire formats — round 4): one decode→mix→
-        resample→encode launch for all channels, no HBM round trip for the
-        mixed planes.  Returns per-channel bytes or None to fall through
-        to the XLA kernels."""
-        rs = self.resampler if self._uniform else None
-        B, L = self.chunk_blocks, self.block_samples
-        if not (
-            self.impl == "pallas"
-            and rs is not None
-            and getattr(rs, "bank", None) is not None
-            and L % 128 == 0
-            and 128 % rs.Q == 0
-            and total == B * L          # padded tails poison the carry
-        ):
-            return None
-        from doppler_tpu.ops.pallas.chain import (
-            carry_rows,
-            make_chain_taps,
-            mix_resample_chain_pallas_channels,
-        )
-
-        hbr = carry_rows(rs.T)
-        if hbr > (B * L) // 128:
-            return None
-        C = len(self.channels)
-        if self._chain_taps is None:
-            self._chain_taps = jnp.asarray(make_chain_taps(rs.bank, rs.P, rs.Q))
-        if self._chain_carries is None:
-            # seed from the batched resampler's per-channel FIR history so
-            # chunks interleaved with the XLA path (or a restored checkpoint)
-            # resume bitwise
-            h = rs.T - 1
-            flat = np.zeros((C, 2, hbr * 128), dtype=np.float32)
-            if h > 0:
-                flat[:, 0, hbr * 128 - h:] = np.asarray(rs._hist_i)
-                flat[:, 1, hbr * 128 - h:] = np.asarray(rs._hist_q)
-            self._chain_carries = jnp.asarray(flat.reshape(C, 2, hbr, 128))
-
-        words = jnp.asarray(
-            staged if self.intype == "i16"
-            else self._stage_planar_from_staged(staged))
-        fields_dev = jnp.asarray(fields)     # one (7, C, B) transfer per chunk
-        out, self._chain_carries = mix_resample_chain_pallas_channels(
-            words, fields_dev, self._chain_taps, self._chain_carries,
-            P=rs.P, Q=rs.Q, T=rs.T, interpret=self.pallas_interpret,
-            intype=self.intype, outtype=self.outtype,
-            dot_precision=self._chain_dot,
-        )
-
-        n_out = rs.out_count_for(total)
-        rs.m_next += n_out
-        rs.in_consumed += total
-        h = rs.T - 1
-        if h > 0:
-            flat_c = self._chain_carries.reshape(C, 2, -1)
-            rs._hist_i = flat_c[:, 0, -h:]
-            rs._hist_q = flat_c[:, 1, -h:]
-        return self._emit_channel_bytes_lazy(out, n_out)
-
-    def _try_cascade(self, staged, fields, total: int, data: bytes):
-        """Channel-batched fused cascade: impl='pallas' + uniform-rate
-        multi-stage resampler, all four wire formats — one launch for all
-        channels, the cascade analog of :meth:`_try_chain`.  Odd-Q final
-        stages run SPLIT exactly like the single-stream pipeline (round 4):
-        the fused ÷2^k front emits f32 planes and the final stage's batched
-        XLA ``process`` consumes them at 1/2^k of the input rate.  Returns
-        per-channel bytes or None to fall through to the XLA kernels."""
-        rs = self.resampler if self._uniform else None
-        B, L = self.chunk_blocks, self.block_samples
-        if not (
-            self.impl == "pallas"
-            and rs is not None
-            and getattr(rs, "stages", None) is not None
-            and L % 128 == 0
-            and total == B * L
-        ):
-            return None
-        from doppler_tpu.ops.pallas.chain import (
-            carry_rows,
-            front_taps,
-            mix_cascade_pallas_channels,
-            pick_cascade_blocks_per_step,
-            split_point,
-            taps_shapes,
-        )
-
-        n = len(rs.stages)
-        if self._cascade_w == "unset":
-            k = self._cascade_k = split_point(rs.stages)
-            self._cascade_w = None
-            if k > 0:
-                dense = k < n
-                self._cascade_taps = tuple(
-                    jnp.asarray(tp) for tp in front_taps(rs.stages, k))
-                self._cascade_stages = tuple(
-                    (st.P, st.Q, st.T) for st in rs.stages[:k])
-                shapes = taps_shapes(rs.stages, self._cascade_taps)
-                try:
-                    self._cascade_w = pick_cascade_blocks_per_step(
-                        B, L, shapes, final_dense=dense)
-                except ValueError:
-                    self._cascade_w = None
-        if self._cascade_w is None:
-            return None
-        k = self._cascade_k
-        split = k < n
-        C = len(self.channels)
-        if self._cascade_carries is None:
-            carries = []
-            for st in rs.stages[:k]:
-                hbr = carry_rows(st.T)
-                h = st.T - 1
-                flat = np.zeros((C, 2, hbr * 128), dtype=np.float32)
-                if h > 0:
-                    flat[:, 0, hbr * 128 - h:] = np.asarray(st._hist_i)
-                    flat[:, 1, hbr * 128 - h:] = np.asarray(st._hist_q)
-                carries.append(jnp.asarray(flat.reshape(C, 2, hbr, 128)))
-            self._cascade_carries = tuple(carries)
-
-        words = jnp.asarray(
-            staged if self.intype == "i16"
-            else self._stage_planar_from_staged(staged))
-        out, self._cascade_carries = mix_cascade_pallas_channels(
-            words, jnp.asarray(fields),
-            self._cascade_taps, self._cascade_carries,
-            stages=self._cascade_stages,
-            blocks_per_step=self._cascade_w,
-            interpret=self.pallas_interpret,
-            intype=self.intype,
-            outtype="f32" if split else self.outtype,
-            final_dense=split,
-        )
-
-        n_in = total
-        for st, carry in zip(rs.stages[:k], self._cascade_carries):
-            n_out = st.out_count_for(n_in)
-            st.m_next += n_out
-            st.in_consumed += n_in
-            h = st.T - 1
-            if h > 0:
-                flat_c = carry.reshape(C, 2, -1)
-                st._hist_i = flat_c[:, 0, -h:]
-                st._hist_q = flat_c[:, 1, -h:]
-            n_in = n_out
-        if not split:
-            return self._emit_channel_bytes_lazy(out, n_in)
-        # split: fused front planes (2, C, B, M_mid) → batched XLA tail
-        planes = out.reshape(2, C, -1)
-        yi, yq = planes[0], planes[1]
-        for st in rs.stages[k:]:
-            cap = int(yi.shape[-1])
-            yi, yq, n_in = st.process(yi, yq, n_in, M=st.max_out_for(cap))
-        enc = _encode_kernel(yi, yq, outtype=self.outtype)
-
-        def fin_split_tail(enc=enc, n_in=n_in):
-            host = np.asarray(enc)
-            if self.outtype == "i16":
-                return [codec.i16_words_to_bytes(host[c, :n_in])
-                        for c in range(C)]
-            return [codec.f32_pairs_to_bytes(host[c, :n_in])
-                    for c in range(C)]
-        return fin_split_tail
 
     def drain(self) -> list[bytes]:
         """Flush every resampler group's FIR tail with T−1 zero samples —
@@ -848,8 +461,6 @@ class MultiChannelPipeline:
                     outs[cidx] = codec.i16_words_to_bytes(enc[row, :n_out])
                 else:
                     outs[cidx] = codec.f32_pairs_to_bytes(enc[row, :n_out])
-        self._chain_carries = None    # histories advanced past the stream end
-        self._cascade_carries = None
         return outs
 
     def run(self, fin, writers, should_stop=None) -> Counters:

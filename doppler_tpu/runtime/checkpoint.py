@@ -166,9 +166,8 @@ def save_channels(path: str, mpipe) -> None:
 
     Per-channel state: the NCO counter pair and the scheduler staircase.
     Per rate-group: the batched resampler's (m_next, in_consumed, FIR
-    histories).  Fused-chain carries are NOT stored — they reseed exactly
-    from the resampler history on the next chunk (runtime.channels._try_chain),
-    which is what makes chain/XLA/mesh paths checkpoint-interoperable.
+    histories).  The sharded and unsharded paths keep the same per-stage
+    histories, which is what makes them checkpoint-interoperable.
     """
     meta = {
         "version": _VERSION,
@@ -262,6 +261,4 @@ def restore_channels(path: str, mpipe) -> dict:
             if not rstate:
                 raise ValueError(f"checkpoint group {g} missing resampler state")
             rs.load_state(rstate)
-        mpipe._chain_carries = None    # reseed from restored histories
-        mpipe._cascade_carries = None
     return meta

@@ -5,14 +5,16 @@ bit-faithful reference NCO.  Falls back to pure NumPy when the library isn't
 built — everything works without it; it's a host-throughput acceleration
 (SURVEY §7 "host I/O becoming the bottleneck").
 
-Build with ``make -C native``; auto-built on first import when a compiler is
-available (best-effort, silent on failure).
+Built from the tracked sources by ``make -C native`` on first use in every
+process (a no-op when ``native/build/`` is up to date).  Only a library that
+``make`` has just confirmed is loaded: when the build fails (no compiler,
+sources that no longer compile), an older library left in ``native/build/``
+is ignored and the NumPy fallback runs, with a warning.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 import subprocess
 from pathlib import Path
 
@@ -22,8 +24,6 @@ __all__ = [
     "available",
     "i16_to_planar",
     "planar_to_i16",
-    "f32_pairs_to_planar_into",
-    "planar_to_f32_pairs",
     "reference_mix",
 ]
 
@@ -32,32 +32,34 @@ _LIB_PATH = _REPO / "native" / "build" / "libdoppler_native.so"
 _lib = None
 
 
-def _try_build() -> None:
+def _build() -> bool:
+    """``make -C native``; True when the library is up to date with the
+    tracked sources."""
     try:
         subprocess.run(
             ["make", "-C", str(_REPO / "native")],
             capture_output=True, timeout=120, check=True,
         )
-    except Exception:
-        pass
+        return True
+    except (OSError, subprocess.SubprocessError) as e:
+        from doppler_tpu.runtime.telemetry import get_logger
+
+        get_logger("native").warning(
+            "native library build failed (%s); using the NumPy fallback",
+            e.__class__.__name__)
+        return False
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not _LIB_PATH.exists() and os.environ.get("DOPPLER_TPU_NO_NATIVE_BUILD") != "1":
-        _try_build()
-    if _LIB_PATH.exists():
+    if _build() and _LIB_PATH.exists():
         try:
             lib = ctypes.CDLL(str(_LIB_PATH))
             lib.dt_i16_to_planar_f32.argtypes = [
                 ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p]
             lib.dt_planar_f32_to_i16.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
-            lib.dt_f32_to_planar_f32.argtypes = [
-                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p]
-            lib.dt_planar_f32_to_f32.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
             lib.dt_reference_mix.restype = ctypes.c_uint32
             lib.dt_reference_mix.argtypes = [
@@ -95,50 +97,6 @@ def i16_to_planar(buf: bytes | np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         return i, q
     x = raw.astype(np.float32) * np.float32(1.0 / 32768.0)
     return np.ascontiguousarray(x[0::2]), np.ascontiguousarray(x[1::2])
-
-
-def f32_pairs_to_planar_into(pairs: np.ndarray, i_out: np.ndarray,
-                             q_out: np.ndarray) -> None:
-    """Interleaved f32 ``(n, 2)`` → the given contiguous planar f32 buffers.
-
-    The Pallas f32 staging path (Pipeline._stage_in planar=True) deinterleaves
-    every input chunk; writing straight into the padded staging rows skips
-    the intermediate arrays a return-style API would allocate.
-    """
-    pairs = np.ascontiguousarray(pairs, dtype=np.float32)
-    n = pairs.shape[0]
-    lib = _load()
-    # the native call writes n raw floats through each pointer — it must
-    # only run when the buffers really are float32 and large enough, else
-    # it would silently corrupt memory where the NumPy path would raise
-    if (
-        lib
-        and i_out.flags.c_contiguous and q_out.flags.c_contiguous
-        and i_out.dtype == np.float32 and q_out.dtype == np.float32
-        and i_out.size >= n and q_out.size >= n
-    ):
-        lib.dt_f32_to_planar_f32(
-            pairs.ctypes.data, n, i_out.ctypes.data, q_out.ctypes.data
-        )
-        return
-    i_out[:n] = pairs[:, 0]
-    q_out[:n] = pairs[:, 1]
-
-
-def planar_to_f32_pairs(i: np.ndarray, q: np.ndarray) -> np.ndarray:
-    """Planar f32 → interleaved ``(n, 2)`` f32 (main.rs:89-93 layout)."""
-    i = np.ascontiguousarray(i, dtype=np.float32)
-    q = np.ascontiguousarray(q, dtype=np.float32)
-    n = i.size
-    out = np.empty((n, 2), dtype="<f4")
-    lib = _load()
-    if lib:
-        lib.dt_planar_f32_to_f32(i.ctypes.data, q.ctypes.data, n,
-                                 out.ctypes.data)
-        return out
-    out[:, 0] = i
-    out[:, 1] = q
-    return out
 
 
 def planar_to_i16(i: np.ndarray, q: np.ndarray) -> np.ndarray:

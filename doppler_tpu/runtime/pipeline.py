@@ -28,13 +28,10 @@ import jax.numpy as jnp
 
 from doppler_tpu.ops import codec, nco
 from doppler_tpu.ops.phase_plan import NCOState, plan_blocks
-from doppler_tpu.runtime import native
 from doppler_tpu.runtime import stream as streaming
-from doppler_tpu.runtime.telemetry import Counters, get_logger
+from doppler_tpu.runtime.telemetry import Counters
 
 __all__ = ["Scheduler", "ConstScheduler", "Pipeline"]
-
-log = get_logger("pipeline")
 
 
 class Scheduler(Protocol):
@@ -103,12 +100,9 @@ class Pipeline:
         quantize_ratio_f32: bool = True,
         reset_quirk: bool = True,
         flush_every_chunk: bool = True,
-        impl: str = "xla",
-        pallas_interpret: bool = False,
         drain_on_eof: bool = False,
         prefetch_chunks: int = 0,
         mesh=None,
-        precision: str = "exact",
     ):
         if samplerate <= 0:
             raise ValueError("samplerate must be positive")
@@ -121,22 +115,6 @@ class Pipeline:
         self.quantize_ratio_f32 = quantize_ratio_f32
         self.reset_quirk = reset_quirk
         self.flush_every_chunk = flush_every_chunk
-        if impl not in ("xla", "pallas"):
-            raise ValueError(f"impl must be 'xla' or 'pallas', got {impl!r}")
-        self.impl = impl
-        self.pallas_interpret = pallas_interpret  # CPU testing of pallas paths
-        if precision not in ("exact", "fast"):
-            raise ValueError(
-                f"precision must be 'exact' or 'fast', got {precision!r}")
-        # 'fast' = the 3-pass bf16-split MXU scheme (dot_precision=
-        # 'split3', ops/pallas/chain.py): measured +6% on the v5e at ~90 dB
-        # vs the exact kernel (≤1 LSB) — far inside the reference's own f32
-        # phase-noise bound, but NOT the ≤1-LSB-with-<1%-diffs oracle
-        # contract, hence opt-in.  Applies to the unsharded Pallas chain
-        # AND cascade kernels; mesh/channels paths keep the exact
-        # formulation.
-        self.precision = precision
-        self._chain_dot = "split3" if precision == "fast" else "highest"
         self.drain_on_eof = drain_on_eof  # flush the FIR tail with zeros at EOF
         self._drained = False  # did THIS run reach EOF and flush the tail?
         self.prefetch_chunks = int(prefetch_chunks)  # staged-read queue depth
@@ -160,8 +138,6 @@ class Pipeline:
         self.mesh = mesh
         self._sharded_mix_step = None
         self._sharded_rs_step = None
-        self._sharded_chain_step = None
-        self._sharded_cascade_step = None
         if mesh is not None:
             if mesh.shape.get("channel", 1) != 1:
                 raise ValueError(
@@ -176,27 +152,25 @@ class Pipeline:
                 )
 
     def set_resampler(self, resampler) -> None:
-        """Insert a post-mix resampler stage (see ops.resample)."""
-        self.resampler = resampler
-        self._cascade_w = "unset"          # re-derive cascade geometry
-        self._cascade_k = None             # fused-stage count (split point)
-        self._cascade_taps = None
-        self._cascade_carries = None
-        self._cascade_mesh_ok_c = None
-        self._sharded_cascade_step = None
+        """Insert a post-mix resampler stage (see ops.resample).
+
+        Under a time-sharded mesh only the single-stage resampler has a
+        sharded step (the ppermute halo of :mod:`doppler_tpu.parallel.sharded`);
+        a multi-stage cascade is refused rather than run on one device.
+        """
         if self.mesh is None:
+            self.resampler = resampler
             return
+        n_time = self.mesh.shape["time"]
         if getattr(resampler, "bank", None) is None:
-            if not self._cascade_mesh_ok():
-                log.warning(
-                    "mesh mode: this cascade cannot run the sharded fused "
-                    "step (geometry/impl) — resampling runs on the default "
-                    "device"
-                )
+            if n_time > 1:
+                raise ValueError(
+                    f"a multi-stage resampler cannot be time-sharded "
+                    f"(--mesh time={n_time}); use --resample-stages single, "
+                    f"or channels mode with --mesh channel=N only")
+            self.resampler = resampler
             return
-        n_loc = (
-            self.chunk_blocks * self.block_samples // self.mesh.shape["time"]
-        )
+        n_loc = self.chunk_blocks * self.block_samples // n_time
         if resampler.T - 1 > n_loc:
             raise ValueError(
                 f"resampler history ({resampler.T - 1} samples) exceeds one "
@@ -204,220 +178,7 @@ class Pipeline:
             )
         if n_loc * resampler.P >= (1 << 30):
             raise ValueError("time shard too large for 32-bit phase math")
-
-    # -- fused-chain plumbing ------------------------------------------------
-
-    def _chain_eligible(self, total: int) -> bool:
-        """May this chunk run the fused Pallas chain kernel?"""
-        rs = self.resampler
-        if rs is None or self.impl != "pallas":
-            return False
-        from doppler_tpu.ops.pallas.chain import carry_rows
-
-        L = self.block_samples
-        return (
-            getattr(rs, "bank", None) is not None  # single-stage only
-            and L % 128 == 0
-            and 128 % rs.Q == 0
-            # FIR history must fit in one block's carry rows
-            and carry_rows(rs.T) <= L // 128
-            # padded tail chunks would poison the carry with zeros;
-            # only the EOF chunk is partial, so this costs nothing
-            and total == self.chunk_blocks * L
-        )
-
-    def _cascade_eligible(self, total: int) -> bool:
-        """May this chunk run the fused Pallas cascade kernel?
-
-        Requires a :class:`~doppler_tpu.ops.multistage.MultiStageResampler`
-        and a valid step geometry — checked once and cached.  Two shapes
-        (``self._cascade_k`` = number of fused stages):
-
-        - **fully fused** (every stage tiles the 128-lane row,
-          ``128 % Q == 0``): one kernel runs mix + all stages + encode.
-        - **split** (the final stage's reduced Q doesn't tile — odd Q can
-          never divide 128; e.g. 100 Msps → 48 ksps ends in Q=3125): the
-          fused kernel runs the heavy ÷2^k front (``final_dense`` dense
-          stream rows, f32 planes out) and the final
-          :class:`~doppler_tpu.ops.resample.RationalResampler` consumes
-          the planes via its XLA ``process`` at 1/2^k of the input rate,
-          where even XLA is cheap (VERDICT r3 next #1; reference contract:
-          liquid-dsp msresamp arbitrary rates, dsp.rs:25).
-        """
-        rs = self.resampler
-        if (rs is None or self.impl != "pallas"
-                or getattr(rs, "stages", None) is None):
-            return False
-        L = self.block_samples
-        if getattr(self, "_cascade_w", "unset") == "unset":
-            from doppler_tpu.ops.pallas.chain import (
-                front_taps,
-                pick_cascade_blocks_per_step,
-                split_point,
-                taps_shapes,
-            )
-
-            self._cascade_w = None
-            self._cascade_k = len(rs.stages)
-            if L % 128 == 0:
-                k = self._cascade_k = split_point(rs.stages)
-                if k > 0:
-                    dense = k < len(rs.stages)
-                    try:
-                        shapes = taps_shapes(
-                            rs.stages, front_taps(rs.stages, k))
-                        self._cascade_w = pick_cascade_blocks_per_step(
-                            self.chunk_blocks, L, shapes,
-                            final_dense=dense)
-                    except ValueError:
-                        self._cascade_w = None
-        return (
-            self._cascade_w is not None
-            and total == self.chunk_blocks * L
-        )
-
-    def _cascade_mesh_ok(self) -> bool:
-        """May ``--mesh`` chunks run the sharded fused cascade step?
-
-        Per-shard geometry must validate at B/n_time blocks, and one block
-        must cover every fused stage's carry cone past the zero-history
-        corrupt head (the halo-replay bound shared with
-        :meth:`_seek_cascade`).  Round 4: odd-Q final stages run their
-        fused ÷2^k front sharded too (split — final_dense planes out, the
-        XLA tail consumes the gathered planes at 1/2^k rate).
-        """
-        rs = self.resampler
-        if (self.mesh is None or rs is None or self.impl != "pallas"
-                or getattr(rs, "stages", None) is None):
-            return False
-        if getattr(self, "_cascade_mesh_ok_c", None) is None:
-            from doppler_tpu.ops.pallas.chain import (
-                cascade_replay_need,
-                front_taps,
-                pick_cascade_blocks_per_step,
-                split_point,
-                taps_shapes,
-                widen_replay_span,
-            )
-
-            ok = False
-            L = self.block_samples
-            n_time = self.mesh.shape["time"]
-            k = split_point(rs.stages)
-            if (L % 128 == 0 and self.chunk_blocks % n_time == 0
-                    and k > 0):
-                dense = k < len(rs.stages)
-                try:
-                    shapes = taps_shapes(rs.stages, front_taps(rs.stages, k))
-                    need = cascade_replay_need(
-                        rs.stages[:k], self.samplerate)
-                    b_loc = self.chunk_blocks // n_time
-                    # replay span: the cone in whole blocks, widened until
-                    # the step geometry validates (extra real blocks stay
-                    # bitwise; the step does the same search)
-                    r_h = widen_replay_span(need, L, b_loc, shapes,
-                                            final_dense=dense)
-                    ok = (
-                        pick_cascade_blocks_per_step(
-                            b_loc, L, shapes, final_dense=dense)
-                        is not None
-                        and r_h <= b_loc
-                    )
-                    if ok:
-                        self._cascade_k = k
-                except ValueError:
-                    ok = False
-            self._cascade_mesh_ok_c = ok
-        return self._cascade_mesh_ok_c
-
-    def _ensure_cascade_state(self) -> None:
-        """Seed fused-stage chain carries/taps (idempotent; reseeds after a
-        fallback chunk from each stage's mirrored FIR history).  Covers the
-        first ``_cascade_k`` stages — all of them when fully fused, the
-        ÷2^k front when split (the XLA tail keeps its own state)."""
-        from doppler_tpu.ops.pallas.chain import (
-            carry_rows,
-            front_taps,
-            split_point,
-        )
-
-        rs = self.resampler
-        k = self._cascade_k
-        if k is None:
-            # mesh path: _cascade_mesh_ok (not _cascade_eligible) gated the
-            # dispatch; derive k with the shared rule instead of assuming
-            # fully fused (ADVICE r4: the mesh gate admits split cascades
-            # too, and the gates and carry seeding MUST agree on k)
-            k = self._cascade_k = split_point(rs.stages)
-        dense = k < len(rs.stages)
-        if getattr(self, "_cascade_taps", None) is None:
-            self._cascade_taps = tuple(
-                jnp.asarray(tp) for tp in front_taps(rs.stages, k))
-            self._cascade_stages = tuple(
-                (st.P, st.Q, st.T) for st in rs.stages[:k])
-        if getattr(self, "_cascade_carries", None) is None:
-            carries = []
-            for st in rs.stages[:k]:
-                hbr = carry_rows(st.T)
-                flat = np.zeros((2, hbr * 128), dtype=np.float32)
-                h = st.T - 1
-                if h > 0:
-                    flat[0, hbr * 128 - h:] = np.asarray(st._hist_i)
-                    flat[1, hbr * 128 - h:] = np.asarray(st._hist_q)
-                carries.append(jnp.asarray(flat.reshape(2, hbr, 128)))
-            self._cascade_carries = tuple(carries)
-
-    def _advance_cascade_state(self, total: int, carries) -> int:
-        """Mirror fused-stage resampler bookkeeping out of the device carries
-        (device-lazy) and advance the stream counters.  Returns the sample
-        count entering stage ``_cascade_k`` — the final output count when
-        fully fused, the fused front's output count when split."""
-        rs = self.resampler
-        n_in = total
-        for st, carry in zip(rs.stages[:self._cascade_k], carries):
-            n_out = st.out_count_for(n_in)
-            st.m_next += n_out
-            st.in_consumed += n_in
-            flat = carry.reshape(2, -1)
-            h = st.T - 1
-            st._hist_i = flat[0, flat.shape[1] - h:]
-            st._hist_q = flat[1, flat.shape[1] - h:]
-            n_in = n_out
-        self._sample_offset += total
-        return n_in
-
-    def _ensure_chain_state(self) -> None:
-        """Seed the chain carry/taps (idempotent; reseeds after fallback)."""
-        from doppler_tpu.ops.pallas.chain import carry_rows, make_chain_taps
-
-        rs = self.resampler
-        if getattr(self, "_chain_carry", None) is None:
-            # seed the carry from the resampler's FIR history so a
-            # checkpoint-restored pipeline resumes bitwise
-            hbr = carry_rows(rs.T)
-            flat = np.zeros((2, hbr * 128), dtype=np.float32)
-            h = rs.T - 1
-            if h > 0:
-                flat[0, hbr * 128 - h:] = np.asarray(rs._hist_i)
-                flat[1, hbr * 128 - h:] = np.asarray(rs._hist_q)
-            self._chain_carry = jnp.asarray(flat.reshape(2, hbr, 128))
-        if getattr(self, "_chain_taps", None) is None:
-            self._chain_taps = jnp.asarray(make_chain_taps(rs.bank, rs.P, rs.Q))
-
-    def _advance_chain_state(self, total: int, carry) -> int:
-        """Post-dispatch host bookkeeping shared by the unsharded and
-        sharded chain paths: advance the resampler's stream counters and
-        mirror the FIR history out of the device carry (device-lazy — no
-        sync until a checkpoint materializes it).  Returns n_out."""
-        rs = self.resampler
-        n_out = rs.out_count_for(total)
-        rs.m_next += n_out
-        rs.in_consumed += total
-        flat = carry.reshape(2, -1)
-        rs._hist_i = flat[0, flat.shape[1] - (rs.T - 1):]
-        rs._hist_q = flat[1, flat.shape[1] - (rs.T - 1):]
-        self._sample_offset += total
-        return n_out
+        self.resampler = resampler
 
     # -- multi-host seek -----------------------------------------------------
 
@@ -425,25 +186,15 @@ class Pipeline:
         """Raw capture blocks :meth:`seek_to_block` needs as ``history``
         (read them from just before the seek point).  1 for single-stage
         resamplers; for cascades, enough blocks to cover the replay's
-        corrupt head + carry cone (heavy rates — e.g. config 5's
-        100 Msps → 48 ksps — need several reference blocks)."""
+        zero-history corrupt head plus the FIR history itself (heavy rates —
+        e.g. config 5's 100 Msps → 48 ksps — need several reference
+        blocks)."""
         rs = self.resampler
         if rs is None or rs.T <= 1:
             return 0
         if getattr(rs, "bank", None) is not None:
             return 1
-        L = self.block_samples
-        if self._cascade_eligible(self.chunk_blocks * L):
-            from doppler_tpu.ops.pallas.chain import carry_rows as _cr
-
-            kf = self._cascade_k
-            cone = max(
-                (_cr(st.T) * 128 if i < kf else st.T - 1)
-                * (self.samplerate // st.in_rate)
-                for i, st in enumerate(rs.stages)
-            )
-            return -(-(2 * (rs.T - 1) + cone) // L)
-        return -(-(2 * (rs.T - 1)) // L)
+        return -(-(2 * (rs.T - 1)) // self.block_samples)
 
     def seek_to_block(self, n_blocks: int, history: bytes | None = None) -> None:
         """Fast-forward a FRESH pipeline to block ``n_blocks`` without
@@ -507,76 +258,30 @@ class Pipeline:
                 "seek with a resampler needs the raw bytes of the "
                 "preceding full block as history"
             )
-        # the single-stage path needs exactly one block — keep the last
-        history = history[-self.block_bytes:]
-        pa = [tail_fields[fi, -1:] for fi in range(7)]
+        # the single-stage path needs exactly one block — keep the last;
+        # mix it with the stream's own kernel (bitwise chunk-width-stable,
+        # pinned by the chunked-vs-streaming equality tests)
+        mi, mq = self._mix_history(history[-self.block_bytes:],
+                                   tail_fields[:, -1:])
         h = rs.T - 1
-        if self._chain_eligible(self.chunk_blocks * L):
-            # replay through a 1-block call of the chain kernel — identical
-            # kernel code to the stream path, so the carry is bitwise the
-            # virtual previous host's (same trick as the sharded halo replay)
-            from doppler_tpu.ops.pallas.chain import (
-                carry_rows,
-                mix_resample_chain_pallas_stream,
-            )
-
-            self._ensure_chain_state()
-            if self.intype == "i16":
-                flat = np.zeros(L, dtype="<i4")
-                flat[:] = codec.bytes_to_i16_words(history)
-                staged = flat.reshape(1, L)
-            else:
-                pairs = codec.bytes_to_f32_pairs(history)
-                flat = np.zeros((2, L), dtype="<f4")
-                native.f32_pairs_to_planar_into(pairs, flat[0], flat[1])
-                staged = flat.reshape(2, 1, L)
-            zero_c = jnp.zeros((2, carry_rows(rs.T), 128), jnp.float32)
-            _, carry = mix_resample_chain_pallas_stream(
-                jnp.asarray(staged),
-                *(jnp.asarray(a) for a in pa),
-                self._chain_taps, zero_c, P=rs.P, Q=rs.Q, T=rs.T,
-                interpret=self.pallas_interpret,
-                intype=self.intype, outtype=self.outtype,
-            )
-            self._chain_carry = carry
-            cf = carry.reshape(2, -1)
-            rs._hist_i = cf[0, cf.shape[1] - h:]
-            rs._hist_q = cf[1, cf.shape[1] - h:]
-            return
-        # XLA / Pallas-mixer paths: mix the single history block with the
-        # same kernel the stream uses (bitwise chunk-width-stable, pinned
-        # by the chunked-vs-streaming equality tests)
-        use_pallas_mix = self.impl == "pallas" and L % 128 == 0
-        if self.intype == "i16":
-            flat = np.zeros(L, dtype="<i4")
-            flat[:] = codec.bytes_to_i16_words(history)
-            staged = flat.reshape(1, L)
-        elif use_pallas_mix:
-            pairs = codec.bytes_to_f32_pairs(history)
-            flat = np.zeros((2, L), dtype="<f4")
-            native.f32_pairs_to_planar_into(pairs, flat[0], flat[1])
-            staged = flat.reshape(2, 1, L)
-        else:
-            staged = codec.bytes_to_f32_pairs(history).reshape(1, L, 2)
-        if use_pallas_mix:
-            from doppler_tpu.ops.pallas.mixer import mix_blocks_pallas_fmt
-
-            out = mix_blocks_pallas_fmt(
-                jnp.asarray(staged), *(jnp.asarray(a) for a in pa),
-                intype=self.intype, outtype="f32",
-                interpret=self.pallas_interpret,
-            )
-            planes = out.reshape(2, -1)
-            mi, mq = planes[0], planes[1]
-        else:
-            out = _chunk_kernel(
-                jnp.asarray(staged), *(jnp.asarray(a) for a in pa),
-                intype=self.intype, outtype="f32",
-            )
-            flat_out = out.reshape(-1, 2)
-            mi, mq = flat_out[:, 0], flat_out[:, 1]
         rs._hist_i = mi[L - h:]
         rs._hist_q = mq[L - h:]
+
+    def _mix_history(self, history: bytes, fields):
+        """Mix ``k`` raw history blocks with their plan constants ``fields``
+        (7, k) through the stream's mix kernel → planar f32 (i, q)."""
+        k, L = fields.shape[1], self.block_samples
+        if self.intype == "i16":
+            staged = np.asarray(
+                codec.bytes_to_i16_words(history)).reshape(k, L)
+        else:
+            staged = codec.bytes_to_f32_pairs(history).reshape(k, L, 2)
+        out = _chunk_kernel(
+            jnp.asarray(staged), *(jnp.asarray(a) for a in fields),
+            intype=self.intype, outtype="f32",
+        )
+        flat_out = out.reshape(-1, 2)
+        return flat_out[:, 0], flat_out[:, 1]
 
     def _seek_cascade(self, n_blocks: int, history: bytes | None,
                       tail_fields) -> None:
@@ -585,181 +290,47 @@ class Pipeline:
         their per-block plan constants, (7, k_h)).
 
         The replay starts each stage with zero history, so its first
-        ``rs.T − 1`` input-referred samples are corrupted — but each stage's
-        carry depends only on the block's tail (carry cone =
-        ``carry_rows·128`` samples at the stage rate, input-referred ≤
-        ``HBR_s·128·ratio_s + rs.T − 1``), so one block suffices whenever
-        the cone and the corrupt head don't overlap (checked).  The replay
-        runs the same program the stream will run — the fused cascade kernel
-        when eligible (carries bitwise by W-invariance), else the XLA
-        cascade's own ``process`` (bitwise by its chunk-width stability) —
-        so a seeked host emits exactly the single-process bytes
+        ``rs.T − 1`` input-referred samples are corrupted; each stage's
+        history is its last ``T − 1`` inputs, so ``2·(rs.T − 1)`` replayed
+        samples suffice (checked).  The replay runs the cascade's own
+        ``process`` — bitwise by its chunk-width stability — so a seeked
+        host emits exactly the single-process bytes
         (tests/test_distributed.py).
         """
         rs = self.resampler
         L = self.block_samples
-        s_lo = n_blocks * L
-        n_in = s_lo
+        n_in = n_blocks * L
         counters = []
         for st in rs.stages:
             n_out = -(-n_in * st.P // st.Q)
             counters.append((n_in, n_out))
             n_in = n_out
-        if rs.T <= 1 or n_blocks == 0:
-            for st, (c_in, c_out) in zip(rs.stages, counters):
-                st.in_consumed = c_in
-                st.m_next = c_out
-            return
-        if (history is None or len(history) < self.block_bytes
-                or len(history) % self.block_bytes):
-            raise ValueError(
-                "seek with a resampler needs whole raw capture blocks as "
-                "history (see seek_history_blocks)"
-            )
-        from doppler_tpu.ops.pallas.chain import carry_rows as _cr
-
-        k_h = min(len(history) // self.block_bytes, tail_fields.shape[1])
-        history = history[-k_h * self.block_bytes:]
-        tail = tail_fields[:, -k_h:]
-        total_1 = self.chunk_blocks * L
-        if self._cascade_eligible(total_1):
-            # FUSED replay bound (ADVICE r3: per the path actually taken):
-            # the zero-history corrupt head plus every stage's carry cone
-            # must fit inside the replayed real blocks.  Fused stages need
-            # whole 128-row carries; XLA-tail stages (split cascade) only
-            # their T−1 input-referred samples.
-            kf = self._cascade_k
-            cone = max(
-                (_cr(st.T) * 128 if i < kf else st.T - 1)
-                * (self.samplerate // st.in_rate)
-                for i, st in enumerate(rs.stages)
-            )
-            if k_h * L < 2 * (rs.T - 1) + cone:
+        if rs.T > 1 and n_blocks > 0:
+            if (history is None or len(history) < self.block_bytes
+                    or len(history) % self.block_bytes):
+                raise ValueError(
+                    "seek with a resampler needs whole raw capture blocks "
+                    "as history (see seek_history_blocks)"
+                )
+            k_h = min(len(history) // self.block_bytes, tail_fields.shape[1])
+            if k_h * L < 2 * (rs.T - 1):
                 raise ValueError(
                     f"history ({k_h} blocks = {k_h * L} samples) too short "
                     f"to reconstruct the cascade's state (needs ≥ "
-                    f"{2 * (rs.T - 1) + cone}; see seek_history_blocks)"
+                    f"{2 * (rs.T - 1)}; see seek_history_blocks)"
                 )
-            from doppler_tpu.ops.pallas.chain import (
-                mix_cascade_pallas_stream,
-            )
-
-            self._ensure_cascade_state()
-            # Replay through the chunk's own validated step geometry
-            # (blocks_per_step = _cascade_w), zero-prepadding to whole
-            # steps with the real blocks LAST (ADVICE r3 medium: small-B
-            # geometry need not validate).  Zero prefix blocks mix to
-            # exact zeros, so each stage's carry — the last HBR rows of
-            # its input, inside the real span by the cone bound above —
-            # is bitwise what the stream held entering block ``n_blocks``.
-            W_r = self._cascade_w
-            B_r = W_r * (-(-k_h // W_r))
-            if self.intype == "i16":
-                flat = np.zeros((B_r, L), dtype="<i4")
-                words = codec.bytes_to_i16_words(history)
-                flat[B_r - k_h:] = words.reshape(k_h, L)
-                staged = flat
-            else:
-                pairs = codec.bytes_to_f32_pairs(history)
-                flat = np.zeros((2, B_r, L), dtype="<f4")
-                tgt = flat[:, B_r - k_h:].reshape(2, k_h * L)
-                native.f32_pairs_to_planar_into(pairs, tgt[0], tgt[1])
-                flat[:, B_r - k_h:] = tgt.reshape(2, k_h, L)
-                staged = flat
-            plans_r = np.zeros((7, B_r), dtype=np.uint32)
-            plans_r[:, B_r - k_h:] = tail
-            zeros = tuple(
-                jnp.zeros_like(c) for c in self._cascade_carries
-            )
-            k = len(self._cascade_stages)
-            split = k < len(rs.stages)
-            out, carries = mix_cascade_pallas_stream(
-                jnp.asarray(staged),
-                *(jnp.asarray(plans_r[fi]) for fi in range(7)),
-                self._cascade_taps, zeros, stages=self._cascade_stages,
-                blocks_per_step=W_r, interpret=self.pallas_interpret,
-                intype=self.intype,
-                outtype="f32" if split else self.outtype,
-                final_dense=split,
-            )
-            self._cascade_carries = carries
-            for st, carry, (c_in, c_out) in zip(rs.stages, carries, counters):
-                flat_c = carry.reshape(2, -1)
-                h = st.T - 1
-                st._hist_i = flat_c[0, flat_c.shape[1] - h:]
-                st._hist_q = flat_c[1, flat_c.shape[1] - h:]
-                st.in_consumed = c_in
-                st.m_next = c_out
-            if split:
-                # XLA-tail stages: run the real blocks' front planes through
-                # the same ``process`` the stream's tail runs — it leaves
-                # each tail stage holding exactly the stream's FIR history
-                # (chunk-width stability), then pin the absolute counters
-                planes = out.reshape(2, B_r, -1)[:, B_r - k_h:]
-                yi = planes[0].reshape(-1)
-                yq = planes[1].reshape(-1)
-                n_val = yi.shape[-1]
-                for st, (c_in, c_out) in zip(rs.stages[k:], counters[k:]):
-                    cap = int(yi.shape[-1])
-                    yi, yq, n_val = st.process(yi, yq, n_val,
-                                               M=st.max_out_for(cap))
-                    st.in_consumed = c_in
-                    st.m_next = c_out
-            return
-        # XLA replay bound: each stage only needs its T−1 input-referred
-        # history past the corrupt head — no 128-row carry padding
-        if k_h * L < 2 * (rs.T - 1):
-            raise ValueError(
-                f"history ({k_h} blocks = {k_h * L} samples) too short to "
-                f"reconstruct the cascade's state (needs ≥ "
-                f"{2 * (rs.T - 1)}; see seek_history_blocks)"
-            )
-        # XLA cascade: mix the history blocks with the stream's mixer, then
-        # run them through the (fresh) cascade — its chunk-width-stable
-        # ``process`` leaves each stage holding exactly the stream's history
-        use_pallas_mix = self.impl == "pallas" and L % 128 == 0
-        if self.intype == "i16":
-            staged = np.asarray(
-                codec.bytes_to_i16_words(history)).reshape(k_h, L)
-        elif use_pallas_mix:
-            pairs = codec.bytes_to_f32_pairs(history)
-            flat = np.zeros((2, k_h * L), dtype="<f4")
-            native.f32_pairs_to_planar_into(pairs, flat[0], flat[1])
-            staged = flat.reshape(2, k_h, L)
-        else:
-            staged = codec.bytes_to_f32_pairs(history).reshape(k_h, L, 2)
-        pa = [tail[fi] for fi in range(7)]
-        if use_pallas_mix:
-            from doppler_tpu.ops.pallas.mixer import mix_blocks_pallas_fmt
-
-            out = mix_blocks_pallas_fmt(
-                jnp.asarray(staged), *(jnp.asarray(a) for a in pa),
-                intype=self.intype, outtype="f32",
-                interpret=self.pallas_interpret,
-            )
-            planes = out.reshape(2, -1)
-            mi, mq = planes[0], planes[1]
-        else:
-            out = _chunk_kernel(
-                jnp.asarray(staged), *(jnp.asarray(a) for a in pa),
-                intype=self.intype, outtype="f32",
-            )
-            flat_out = out.reshape(-1, 2)
-            mi, mq = flat_out[:, 0], flat_out[:, 1]
-        rs.process(mi, mq, k_h * L)
+            mi, mq = self._mix_history(history[-k_h * self.block_bytes:],
+                                       tail_fields[:, -k_h:])
+            rs.process(mi, mq, k_h * L)
         for st, (c_in, c_out) in zip(rs.stages, counters):
             st.in_consumed = c_in
             st.m_next = c_out
 
     # -- staging ------------------------------------------------------------
 
-    def _stage_in(self, data: bytes, total_samples: int, planar: bool = False):
-        """Raw chunk bytes → fixed-shape device-ready array.
-
-        i16 → packed int32 words ``(B, L)``; f32 → interleaved ``(B, L, 2)``
-        for the XLA path, or planar ``(2, B, L)`` (``planar=True``) for the
-        Pallas kernel, which wants I/Q on separate dense lanes.
-        """
+    def _stage_in(self, data: bytes):
+        """Raw chunk bytes → fixed-shape device-ready array: i16 → packed
+        int32 words ``(B, L)``; f32 → interleaved ``(B, L, 2)``."""
         B, L = self.chunk_blocks, self.block_samples
         if self.intype == "i16":
             flat = np.zeros(B * L, dtype="<i4")
@@ -767,24 +338,14 @@ class Pipeline:
             flat[: words.size] = words
             return flat.reshape(B, L)
         pairs = codec.bytes_to_f32_pairs(data)
-        if planar:
-            flat = np.zeros((2, B * L), dtype="<f4")
-            native.f32_pairs_to_planar_into(pairs, flat[0], flat[1])
-            return flat.reshape(2, B, L)
         flat = np.zeros((B * L, 2), dtype="<f4")
         flat[: pairs.shape[0]] = pairs
         return flat.reshape(B, L, 2)
 
-    def _stage_out(self, out, total_samples: int, planar: bool = False) -> bytes:
+    def _stage_out(self, out, total_samples: int) -> bytes:
         if self.outtype == "i16":
             flat = np.asarray(out).reshape(-1)
             return codec.i16_words_to_bytes(flat[:total_samples])
-        if planar:
-            planes = np.asarray(out).reshape(2, -1)
-            pairs = native.planar_to_f32_pairs(
-                planes[0, :total_samples], planes[1, :total_samples]
-            )
-            return codec.f32_pairs_to_bytes(pairs)
         flat = np.asarray(out).reshape(-1, 2)
         return codec.f32_pairs_to_bytes(flat[:total_samples])
 
@@ -807,8 +368,8 @@ class Pipeline:
                 return codec.i16_words_to_bytes(np.concatenate(parts))
             parts = [arr[0, k, :c, :] for k, c in enumerate(out_counts)]
             return codec.f32_pairs_to_bytes(np.concatenate(parts))
-        out, n_valid, planar = pending
-        return self._stage_out(out, n_valid, planar=planar)
+        out, n_valid = pending
+        return self._stage_out(out, n_valid)
 
     def _dispatch(self, chunk: streaming.Chunk):
         """Plan + launch one chunk on the device WITHOUT waiting for it.
@@ -844,118 +405,35 @@ class Pipeline:
         return self._dispatch_local(chunk, arrs, total)
 
     def _dispatch_local(self, chunk: streaming.Chunk, arrs, total: int):
-        """Single-device chunk dispatch — also the mesh pipeline's fallback
-        for partial EOF chunks and cascades, so fallback chunks run the
-        EXACT program (incl. the Pallas-vs-XLA mixer choice) the unsharded
+        """Single-device chunk dispatch — also the mesh pipeline's path for
+        partial EOF chunks, so those run the EXACT program the unsharded
         pipeline runs, keeping mesh output byte-identical."""
-        B = self.chunk_blocks
         mix_outtype = self.outtype if self.resampler is None else "f32"
-        L = self.block_samples
-        rs = self.resampler
-        use_pallas_mix = self.impl == "pallas" and L % 128 == 0
-        staged = self._stage_in(
-            chunk.data, total,
-            planar=use_pallas_mix and self.intype == "f32",
+        out = _chunk_kernel(
+            jnp.asarray(self._stage_in(chunk.data)),
+            *(jnp.asarray(a) for a in arrs),
+            intype=self.intype,
+            outtype=mix_outtype,
         )
-        chain_ok = self._chain_eligible(total)
-        if chain_ok:
-            from doppler_tpu.ops.pallas.chain import (
-                mix_resample_chain_pallas_stream,
-            )
-
-            self._ensure_chain_state()
-            taps = self._chain_taps
-            out, self._chain_carry = mix_resample_chain_pallas_stream(
-                jnp.asarray(staged), *(jnp.asarray(a) for a in arrs),
-                taps, self._chain_carry, P=rs.P, Q=rs.Q, T=rs.T,
-                interpret=self.pallas_interpret,
-                intype=self.intype, outtype=self.outtype,
-                dot_precision=self._chain_dot,
-            )
-            n_out = self._advance_chain_state(total, self._chain_carry)
-            return (out, n_out, self.outtype == "f32")
-
-        if self._cascade_eligible(total):
-            from doppler_tpu.ops.pallas.chain import mix_cascade_pallas_stream
-
-            self._ensure_cascade_state()
-            k = len(self._cascade_stages)
-            split = k < len(rs.stages)
-            out, self._cascade_carries = mix_cascade_pallas_stream(
-                jnp.asarray(staged), *(jnp.asarray(a) for a in arrs),
-                self._cascade_taps, self._cascade_carries,
-                stages=self._cascade_stages,
-                blocks_per_step=self._cascade_w,
-                interpret=self.pallas_interpret,
-                intype=self.intype,
-                outtype="f32" if split else self.outtype,
-                final_dense=split,
-                # cascade measured exact == split3 (10.90 vs 10.93 GS/s
-                # best-of-10 interleaved, tools/probe_cascade_precision.py:
-                # the per-stage operand split repeats while the pass
-                # savings concentrate in stage 1) — so 'fast' keeps the
-                # exact formulation here and pays nothing
-                dot_precision="highest",
-            )
-            n_mid = self._advance_cascade_state(total, self._cascade_carries)
-            if not split:
-                return (out, n_mid, self.outtype == "f32")
-            # split cascade: the fused front's dense f32 planes feed the
-            # final rational stage's XLA ``process`` at 1/2^k of the input
-            # rate — its own streaming state composes checkpoint/seek
-            planes = out.reshape(2, -1)
-            yi, yq, n_out = planes[0], planes[1], n_mid
-            for st in rs.stages[k:]:
-                cap = int(yi.shape[-1])
-                yi, yq, n_out = st.process(yi, yq, n_out,
-                                           M=st.max_out_for(cap))
-            enc = _encode_kernel(yi, yq, outtype=self.outtype)
-            return (enc, n_out, False)
-
-        mix_planar = False
-        if use_pallas_mix:
-            from doppler_tpu.ops.pallas.mixer import mix_blocks_pallas_fmt
-
-            out = mix_blocks_pallas_fmt(
-                jnp.asarray(staged), *(jnp.asarray(a) for a in arrs),
-                intype=self.intype, outtype=mix_outtype,
-                interpret=self.pallas_interpret,
-            )
-            mix_planar = mix_outtype == "f32"
-        else:
-            out = _chunk_kernel(
-                jnp.asarray(staged),
-                *(jnp.asarray(a) for a in arrs),
-                intype=self.intype,
-                outtype=mix_outtype,
-            )
         self._sample_offset += total
         if self.resampler is None:
-            return (out, total, mix_planar)
+            return (out, total)
 
-        if mix_planar:
-            planes = out.reshape(2, -1)
-            mi, mq = planes[0], planes[1]
-        else:
-            flat = out.reshape(-1, 2)
-            mi, mq = flat[:, 0], flat[:, 1]
+        flat = out.reshape(-1, 2)
         yi, yq, n_out = self.resampler.process(
-            mi, mq, total,
-            M=self.resampler.max_out_for(B * self.block_samples),
+            flat[:, 0], flat[:, 1], total,
+            M=self.resampler.max_out_for(self.chunk_blocks
+                                         * self.block_samples),
         )
-        # any future pallas-chain/cascade chunk must reseed from rs history
-        self._chain_carry = None
-        self._cascade_carries = None
-        enc = _encode_kernel(yi, yq, outtype=self.outtype)
-        return (enc, n_out, False)
+        return (_encode_kernel(yi, yq, outtype=self.outtype), n_out)
 
     def _dispatch_sharded(self, chunk: streaming.Chunk, arrs, total: int):
         """--mesh chunk dispatch: shard_map steps over the (1, time) mesh.
 
-        Full chunks with a single-stage resampler run the fused sharded
-        stream step (mix + ppermute halo + window_dot per shard); mix-only
-        streams run the sharded mix step for every chunk.  The partial EOF
-        chunk — and multi-stage cascades — take the single-device path,
+        Full chunks with a single-stage resampler run the sharded stream
+        step (mix + ppermute halo + resample per shard); mix-only streams
+        run the sharded mix step for every chunk.  The partial EOF chunk —
+        and a cascade on a one-device mesh — take the single-device path,
         seeded with the mesh-maintained history, so the emitted bytes stay
         identical to an unsharded run.
         """
@@ -970,19 +448,15 @@ class Pipeline:
         B, L = self.chunk_blocks, self.block_samples
         rs = self.resampler
         n_time = self.mesh.shape["time"]
-        chain_ok = self._chain_eligible(total)
-        cascade_ok = (self._cascade_mesh_ok()
-                      and total == self.chunk_blocks * self.block_samples)
-        planar_in = (chain_ok or cascade_ok) and self.intype == "f32"
-        staged = self._stage_in(chunk.data, total, planar=planar_in)
-        if planar_in:
-            data_spec = Spec(None, "time", None)   # (2, B, L) planes
-        elif self.intype == "i16":
-            data_spec = Spec("time", None)
-        else:
-            data_spec = Spec("time", None, None)
+        single_stage = rs is not None and getattr(rs, "bank", None) is not None
+        if rs is not None and not (single_stage and total == B * L):
+            return self._dispatch_local(chunk, arrs, total)
+
+        data_spec = (Spec("time", None) if self.intype == "i16"
+                     else Spec("time", None, None))
         data = jax.device_put(
-            jnp.asarray(staged), NamedSharding(self.mesh, data_spec)
+            jnp.asarray(self._stage_in(chunk.data)),
+            NamedSharding(self.mesh, data_spec)
         )
         plan_sh = NamedSharding(self.mesh, Spec("channel", "time"))
         plans = [jax.device_put(jnp.asarray(a)[None], plan_sh) for a in arrs]
@@ -994,96 +468,28 @@ class Pipeline:
                 )
             out = self._sharded_mix_step(data, *plans)
             self._sample_offset += total
-            return (out, total, False)
+            return (out, total)
 
-        if chain_ok:
-            # --impl pallas: per-shard device program IS the fused chain
-            # kernel (ppermute halo-block replay carries the FIR state) —
-            # the sharded run keeps the unsharded per-chip rate AND its
-            # bytes (tests/test_sharded_pipeline.py::test_mesh_pallas_*)
-            from doppler_tpu.parallel.sharded import make_chain_stream_step
-
-            if self._sharded_chain_step is None:
-                self._sharded_chain_step = make_chain_stream_step(
-                    self.mesh, resampler=rs, interpret=self.pallas_interpret,
-                    intype=self.intype, outtype=self.outtype,
-                )
-            self._ensure_chain_state()
-            repl = NamedSharding(self.mesh, Spec())
-            carry = jax.device_put(jnp.asarray(self._chain_carry), repl)
-            taps = jax.device_put(jnp.asarray(self._chain_taps), repl)
-            out, carries = self._sharded_chain_step(data, *plans, carry, taps)
-            self._chain_carry = carries[-1]
-            n_out = self._advance_chain_state(total, self._chain_carry)
-            return (out, n_out, self.outtype == "f32")
-
-        if cascade_ok:
-            # sharded fused cascade: per-stage halo-block replay (round 3;
-            # round 4 adds the SPLIT form — sharded ÷2^k front, XLA tail)
-            from doppler_tpu.parallel.sharded import make_cascade_stream_step
-
-            self._ensure_cascade_state()
-            k = len(self._cascade_stages)
-            split = k < len(rs.stages)
-            if self._sharded_cascade_step is None:
-                self._sharded_cascade_step = make_cascade_stream_step(
-                    self.mesh, resampler=rs, taps=self._cascade_taps,
-                    stages=self._cascade_stages,
-                    interpret=self.pallas_interpret,
-                    intype=self.intype,
-                    outtype="f32" if split else self.outtype,
-                    final_dense=split,
-                )
-            repl = NamedSharding(self.mesh, Spec())
-            carries = [jax.device_put(jnp.asarray(c), repl)
-                       for c in self._cascade_carries]
-            out, *carries_nt = self._sharded_cascade_step(
-                data, *plans, *carries)
-            self._cascade_carries = tuple(c[-1] for c in carries_nt)
-            n_mid = self._advance_cascade_state(total, self._cascade_carries)
-            if not split:
-                return (out, n_mid, self.outtype == "f32")
-            planes = out.reshape(2, -1)
-            yi, yq, n_out = planes[0], planes[1], n_mid
-            for st in rs.stages[k:]:
-                cap = int(yi.shape[-1])
-                yi, yq, n_out = st.process(yi, yq, n_out,
-                                           M=st.max_out_for(cap))
-            enc = _encode_kernel(yi, yq, outtype=self.outtype)
-            return (enc, n_out, False)
-
-        if getattr(rs, "bank", None) is not None and total == B * L:
-            if self._sharded_rs_step is None:
-                self._sharded_rs_step = make_wideband_stream_step(
-                    self.mesh, intype=self.intype, outtype=self.outtype,
-                    C=1, resampler=rs,
-                )
-            rem, off, out_counts = stream_step_alignment(
-                rs, rs.in_consumed, B * L // n_time, n_time
+        if self._sharded_rs_step is None:
+            self._sharded_rs_step = make_wideband_stream_step(
+                self.mesh, intype=self.intype, outtype=self.outtype,
+                C=1, resampler=rs,
             )
-            hist_sh = NamedSharding(self.mesh, Spec("channel", None))
-            hist_i = jax.device_put(
-                jnp.asarray(rs._hist_i).reshape(1, -1), hist_sh
-            )
-            hist_q = jax.device_put(
-                jnp.asarray(rs._hist_q).reshape(1, -1), hist_sh
-            )
-            out, tail_i, tail_q = self._sharded_rs_step(
-                data, *plans, hist_i, hist_q,
-                jnp.asarray(rem), jnp.asarray(off),
-            )
-            rs.m_next += sum(out_counts)
-            rs.in_consumed += total
-            rs._hist_i = tail_i[0, -1]
-            rs._hist_q = tail_q[0, -1]
-            self._sample_offset += total
-            return ("sharded_rs", out, out_counts)
-
-        # partial EOF chunk (or cascade): run the unsharded dispatch — the
-        # exact program (incl. mixer-kernel choice) the meshless pipeline
-        # runs, seeded with the mesh-maintained history
-        self._chain_carry = None   # next chain chunk reseeds from rs history
-        return self._dispatch_local(chunk, arrs, total)
+        rem, off, out_counts = stream_step_alignment(
+            rs, rs.in_consumed, B * L // n_time, n_time
+        )
+        hist_sh = NamedSharding(self.mesh, Spec("channel", None))
+        hist_i = jax.device_put(jnp.asarray(rs._hist_i).reshape(1, -1), hist_sh)
+        hist_q = jax.device_put(jnp.asarray(rs._hist_q).reshape(1, -1), hist_sh)
+        out, tail_i, tail_q = self._sharded_rs_step(
+            data, *plans, hist_i, hist_q, jnp.asarray(rem), jnp.asarray(off),
+        )
+        rs.m_next += sum(out_counts)
+        rs.in_consumed += total
+        rs._hist_i = tail_i[0, -1]
+        rs._hist_q = tail_q[0, -1]
+        self._sample_offset += total
+        return ("sharded_rs", out, out_counts)
 
     def run(self, fin, fout, should_stop=None) -> Counters:
         """Pump ``fin`` → ``fout`` until EOF (short read), reference framing.

@@ -8,7 +8,7 @@ Mirrors the reference's framing contract (main.rs:49,63,98):
 - bytes beyond the last whole IQ pair are dropped (the reference would have
   panicked on them — dsp.rs:87,103; we degrade gracefully and log).
 
-The TPU pipeline consumes many reference-sized blocks per device dispatch
+The pipeline consumes many reference-sized blocks per device dispatch
 (a *chunk*), so the reader also exposes ``read_chunk`` which gathers up to
 ``n_blocks`` blocks while preserving per-block accounting for the track-mode
 Doppler staircase (SURVEY §3.2).

@@ -71,7 +71,7 @@ class Counters:
     """Lightweight throughput counters for the profiling hooks (SURVEY §5).
 
     Tracks samples and bytes moved plus wall time; ``rate()`` reports
-    samples/s — the framework's primary per-chip metric (BASELINE.md).
+    samples/s — the end-to-end input rate the CLI reports.
     """
 
     def __init__(self) -> None:

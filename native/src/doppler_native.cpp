@@ -1,8 +1,8 @@
 // doppler_tpu native host library.
 //
-// TPU-native replacements for the reference's native layer (SURVEY §2 #6-7:
+// Replacements for the reference's native layer (SURVEY §2 #6-7:
 // src/complex.c + build.rs). The per-sample cexpf FFI of the reference became
-// on-device VPU math; what remains on the host is byte-stream staging — and at
+// on-device math; what remains on the host is byte-stream staging — and at
 // multi-GS/s host rates the Python/NumPy staging path becomes the bottleneck,
 // so the codecs live here as tight auto-vectorizable loops.
 //
@@ -31,15 +31,6 @@ void dt_i16_to_planar_f32(const int16_t* in, size_t n_pairs,
     }
 }
 
-// Interleaved f32 IQ → planar f32 (dsp.rs:101-115).
-void dt_f32_to_planar_f32(const float* in, size_t n_pairs,
-                          float* i_out, float* q_out) {
-    for (size_t n = 0; n < n_pairs; ++n) {
-        i_out[n] = in[2 * n];
-        q_out[n] = in[2 * n + 1];
-    }
-}
-
 static inline int16_t sat_trunc_i16(float v) {
     // Rust `as i16` on f32: truncate toward zero, saturate, NaN → 0
     // (main.rs:77-78).
@@ -56,15 +47,6 @@ void dt_planar_f32_to_i16(const float* i_in, const float* q_in,
     for (size_t n = 0; n < n_pairs; ++n) {
         out[2 * n] = sat_trunc_i16(i_in[n] * 32767.0f);
         out[2 * n + 1] = sat_trunc_i16(q_in[n] * 32767.0f);
-    }
-}
-
-// Planar f32 → interleaved f32 (main.rs:89-93).
-void dt_planar_f32_to_f32(const float* i_in, const float* q_in,
-                          size_t n_pairs, float* out) {
-    for (size_t n = 0; n < n_pairs; ++n) {
-        out[2 * n] = i_in[n];
-        out[2 * n + 1] = q_in[n];
     }
 }
 

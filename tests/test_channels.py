@@ -177,53 +177,6 @@ def test_per_channel_resample_mixed_with_unresampled():
     assert oracle.snr_db(b, a) > 80.0
 
 
-def test_channels_pallas_chain_matches_xla():
-    """impl='pallas' (fused per-channel chain, interpret mode) must match
-    the XLA channels path to <=1 LSB, including across chunk boundaries."""
-    n = 8192 * 8
-    buf = wideband(n)
-
-    def run(impl):
-        specs = [
-            ChannelSpec("x", ConstScheduler(9000.0), center_offset_hz=2000.0),
-            ChannelSpec("y", ConstScheduler(-7000.0)),
-        ]
-        mp = MultiChannelPipeline(FS, "i16", "i16", specs, out_rate=48000,
-                                  chunk_blocks=16, impl=impl,
-                                  pallas_interpret=(impl == "pallas"))
-        outs = [io.BytesIO() for _ in specs]
-        mp.run(io.BytesIO(buf), outs)
-        return [o.getvalue() for o in outs]
-
-    xla = run("xla")
-    pal = run("pallas")
-    for a, b in zip(pal, xla):
-        assert len(a) == len(b)
-        lsb_close(a, b)
-
-
-def test_channels_pallas_chain_tail_fallback_consistent():
-    """A stream whose tail chunk is partial: chain chunks followed by an XLA
-    fallback chunk must still match the all-XLA run (carry handoff through
-    the shared resampler history)."""
-    n = 8192 * 5 + 4096   # partial final block -> partial final chunk
-    buf = wideband(n)
-
-    def run(impl):
-        specs = [ChannelSpec("x", ConstScheduler(5000.0))]
-        mp = MultiChannelPipeline(FS, "i16", "i16", specs, out_rate=48000,
-                                  chunk_blocks=2, impl=impl,
-                                  pallas_interpret=(impl == "pallas"))
-        outs = [io.BytesIO()]
-        mp.run(io.BytesIO(buf), outs)
-        return outs[0].getvalue()
-
-    a = run("pallas")
-    b = run("xla")
-    assert len(a) == len(b)
-    lsb_close(a, b)
-
-
 def _mk_specs():
     return [
         ChannelSpec("a", ConstScheduler(-40000.0), center_offset_hz=500.0),
@@ -406,29 +359,26 @@ def test_channels_256_uniform_plan_lane(monkeypatch):
         assert outs[c].getvalue() == want, f"channel {c} diverged"
 
 
-def test_channels_fused_cascade_matches_single_runs():
-    """Round 3: uniform-rate multi-stage channels ride the channel-batched
-    fused cascade kernel (one launch), matching per-channel single runs
-    within the cross-kernel 1-LSB contract."""
+def test_channels_cascade_matches_single_runs():
+    """Uniform-rate multi-stage channels run ONE batched cascade, matching
+    per-channel single-stream runs within the 1-LSB contract for
+    differently batched programs."""
     from doppler_tpu.ops.resample import attach_resampler
 
-    n = 8192 * 6 + 1000            # full chunks + ragged tail (XLA fallback)
+    n = 8192 * 6 + 1000            # full chunks + ragged tail
     buf = wideband(n)
     shifts = [-15000.0, 0.0, 90000.5, 33000.25]
     specs = [ChannelSpec(f"c{k}", ConstScheduler(s))
              for k, s in enumerate(shifts)]
     mp = MultiChannelPipeline(FS, "i16", "i16", specs, out_rate=48000,
-                              chunk_blocks=8, impl="pallas",
-                              pallas_interpret=True,
-                              resample_stages="multi")
+                              chunk_blocks=8, resample_stages="multi")
     assert getattr(mp.resampler, "stages", None) is not None
     outs = [io.BytesIO() for _ in specs]
     mp.run(io.BytesIO(buf), outs)
-    assert mp._cascade_w is not None, "batched cascade did not engage"
 
     for got, shift in zip(outs, shifts):
         pipe = Pipeline(FS, "i16", "i16", ConstScheduler(shift),
-                        chunk_blocks=8, impl="pallas", pallas_interpret=True)
+                        chunk_blocks=8)
         attach_resampler(pipe, 48000, stages="multi")
         want = io.BytesIO()
         pipe.run(io.BytesIO(buf), want)
@@ -448,9 +398,7 @@ def test_channels_cascade_checkpoint_resume_bitwise(tmp_path):
         specs = [ChannelSpec(f"c{k}", ConstScheduler(s))
                  for k, s in enumerate(shifts)]
         return MultiChannelPipeline(FS, "i16", "i16", specs, out_rate=48000,
-                                    chunk_blocks=8, impl="pallas",
-                                    pallas_interpret=True,
-                                    resample_stages="multi")
+                                    chunk_blocks=8, resample_stages="multi")
 
     mp = mk()
     outs = [io.BytesIO() for _ in shifts]
@@ -472,8 +420,7 @@ def test_channels_cascade_checkpoint_resume_bitwise(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Round 4 (VERDICT r3 next #4): f32 wire formats in the channel-batched
-# fused kernels, and the split cascade in channels mode.
+# f32 wire formats, and the split cascade (odd-Q final stage) in channels mode
 
 
 def f32_wideband(n, seed=0xF32):
@@ -489,59 +436,50 @@ def _f32_close(a: bytes, b: bytes, tol=1e-6):
     assert rel < tol, rel
 
 
+def _single_stream(fs, buf, shift, intype, outtype, stages, chunk_blocks=16):
+    pipe = Pipeline(fs, intype, outtype, ConstScheduler(shift),
+                    chunk_blocks=chunk_blocks)
+    attach_resampler(pipe, 48000, stages=stages)
+    out = io.BytesIO()
+    pipe.run(io.BytesIO(buf), out)
+    return out.getvalue()
+
+
 @pytest.mark.parametrize("stages", ["single", "multi"])
-def test_channels_f32_fused_paths(stages):
-    """f32 in/out channels mode stays on the one-launch fused path (chain
-    and cascade), matching the XLA channels formulation to 1-ulp grade."""
+def test_channels_f32_paths(stages):
+    """f32 in/out channels mode, single-stage and cascade, matches the
+    per-channel single-stream runs to 1-ulp grade."""
     n = 1024 * 16 * 8            # f32 blocks are 1024 samples
     buf = f32_wideband(n)
-
-    def run(impl):
-        specs = [ChannelSpec("x", ConstScheduler(9000.0)),
-                 ChannelSpec("y", ConstScheduler(-7000.0))]
-        mp = MultiChannelPipeline(FS, "f32", "f32", specs, out_rate=48000,
-                                  chunk_blocks=16, impl=impl,
-                                  pallas_interpret=(impl == "pallas"),
-                                  resample_stages=stages)
-        outs = [io.BytesIO() for _ in specs]
-        mp.run(io.BytesIO(buf), outs)
-        return mp, [o.getvalue() for o in outs]
-
-    mp_p, pal = run("pallas")
-    if stages == "single":
-        assert mp_p._chain_taps is not None, "f32 chain did not engage"
-    else:
-        assert mp_p._cascade_w is not None, "f32 cascade did not engage"
-    _, xla = run("xla")
-    for a, b in zip(pal, xla):
-        _f32_close(a, b)
+    shifts = [9000.0, -7000.0]
+    specs = [ChannelSpec(f"c{k}", ConstScheduler(s))
+             for k, s in enumerate(shifts)]
+    mp = MultiChannelPipeline(FS, "f32", "f32", specs, out_rate=48000,
+                              chunk_blocks=16, resample_stages=stages)
+    outs = [io.BytesIO() for _ in specs]
+    mp.run(io.BytesIO(buf), outs)
+    for got, shift in zip(outs, shifts):
+        _f32_close(got.getvalue(),
+                   _single_stream(FS, buf, shift, "f32", "f32", stages))
 
 
 def test_channels_split_cascade_odd_q():
-    """Channels mode with an odd-Q final stage (250 k→48 k, Q=125) runs the
-    channel-batched fused ÷2 front + batched XLA tail (split), matching the
-    all-XLA channels run to ≤1 LSB."""
+    """Channels mode with an odd-Q final stage (250 k→48 k: ÷2, then
+    96/125) matches the per-channel single-stream cascade to ≤1 LSB."""
     fs2 = 250000
     n = 2048 * 16 * 4
     buf = wideband(n)
-
-    def run(impl):
-        specs = [ChannelSpec("x", ConstScheduler(5000.0)),
-                 ChannelSpec("y", ConstScheduler(-3000.0))]
-        mp = MultiChannelPipeline(fs2, "i16", "i16", specs, out_rate=48000,
-                                  chunk_blocks=16, impl=impl,
-                                  pallas_interpret=(impl == "pallas"),
-                                  resample_stages="multi")
-        outs = [io.BytesIO() for _ in specs]
-        mp.run(io.BytesIO(buf), outs)
-        return mp, [o.getvalue() for o in outs]
-
-    mp_p, pal = run("pallas")
-    assert mp_p._cascade_w is not None, "split front did not engage"
-    assert mp_p._cascade_k == 1 < len(mp_p.resampler.stages)
-    _, xla = run("xla")
-    for a, b in zip(pal, xla):
-        lsb_close(a, b)
+    shifts = [5000.0, -3000.0]
+    specs = [ChannelSpec(f"c{k}", ConstScheduler(s))
+             for k, s in enumerate(shifts)]
+    mp = MultiChannelPipeline(fs2, "i16", "i16", specs, out_rate=48000,
+                              chunk_blocks=16, resample_stages="multi")
+    outs = [io.BytesIO() for _ in specs]
+    mp.run(io.BytesIO(buf), outs)
+    assert mp.resampler.stages[-1].Q % 2 == 1
+    for got, shift in zip(outs, shifts):
+        lsb_close(got.getvalue(),
+                  _single_stream(fs2, buf, shift, "i16", "i16", "multi"))
 
 
 def test_channels_split_cascade_checkpoint_resume_bitwise(tmp_path):
@@ -555,14 +493,12 @@ def test_channels_split_cascade_checkpoint_resume_bitwise(tmp_path):
         specs = [ChannelSpec(f"c{k}", ConstScheduler(s))
                  for k, s in enumerate(shifts)]
         return MultiChannelPipeline(fs2, "i16", "i16", specs, out_rate=48000,
-                                    chunk_blocks=16, impl="pallas",
-                                    pallas_interpret=True,
-                                    resample_stages="multi")
+                                    chunk_blocks=16, resample_stages="multi")
 
     mp = mk()
     outs = [io.BytesIO() for _ in shifts]
     mp.run(io.BytesIO(buf), outs)
-    assert mp._cascade_k == 1
+    assert len(mp.resampler.stages) == 2     # ÷2 front + odd-Q tail
     whole = [o.getvalue() for o in outs]
 
     half = len(buf) // 2

@@ -206,28 +206,26 @@ def test_cli_single_process_drained_resume_is_noop(tmp_path):
     assert out.read_bytes() == first, "duplicate drain appended bytes"
 
 
-def test_resume_fast_precision_bitwise(tmp_path):
-    """'fast' precision keeps the checkpoint contract: a fast-mode run cut
-    and resumed must be bitwise the uninterrupted fast-mode run (the chain
-    carry is the MIXED rows, untouched by the matmul precision, and the
-    split3 kernel is deterministic per program)."""
+def test_resume_f32_wire_bitwise(tmp_path):
+    """f32 in/out through the resampler: a run cut at a chunk boundary and
+    resumed is bitwise the uninterrupted run (the FIR history is f32 state
+    independent of the wire format)."""
     fs = 1_024_000
 
     def mk():
-        p = Pipeline(fs, "i16", "i16", ConstScheduler(9000.0),
-                     chunk_blocks=4, block_bytes=8192,
-                     impl="pallas", pallas_interpret=True, precision="fast")
+        p = Pipeline(fs, "f32", "f32", ConstScheduler(9000.0),
+                     chunk_blocks=4)
         attach_resampler(p, 48000)
         return p
 
-    n = 2048 * 16
-    buf = _stream(n)
+    n = 1024 * 16
+    buf = (0.4 * RNG.standard_normal(2 * n)).astype("<f4").tobytes()
     whole = _run(mk(), buf)
 
-    cut = 8192 * 8  # chunk boundary (2048-sample blocks, 4-block chunks)
+    cut = 8192 * 8  # chunk boundary (1024-sample blocks, 4-block chunks)
     p1 = mk()
     first = _run(p1, buf[:cut])
-    ck = tmp_path / "fast.npz"
+    ck = tmp_path / "f32.npz"
     checkpoint.save(str(ck), p1)
     p2 = mk()
     checkpoint.restore(str(ck), p2)

@@ -80,31 +80,38 @@ def test_byte_range_reader():
         ByteRangeReader(io.BytesIO(b""), 5, 2)
 
 
-def _mk_pipe(impl, scheduler=None, resample=True):
-    p = Pipeline(FS, "i16", "i16", scheduler or ConstScheduler(-15000.0),
-                 chunk_blocks=16, impl=impl,
-                 pallas_interpret=impl == "pallas")
+def _mk_pipe(scheduler=None, resample=True, intype="i16", stages="single"):
+    p = Pipeline(FS, intype, intype, scheduler or ConstScheduler(-15000.0),
+                 chunk_blocks=16)
     if resample:
-        attach_resampler(p, 48000.0)
+        attach_resampler(p, 48000.0, stages=stages)
     return p
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_seek_to_block_bitwise(impl):
+def _stream(intype, n):
+    if intype == "i16":
+        return i16_stream(n)
+    return (0.4 * np.random.default_rng(n).standard_normal(2 * n)
+            ).astype("<f4").tobytes()
+
+
+@pytest.mark.parametrize("intype", ["i16", "f32"])
+def test_seek_to_block_bitwise(intype):
     """prefix-run + seeked-suffix-run == full run, at chunk-aligned splits
-    (the multi-host partition unit), for both device implementations."""
-    raw = i16_stream(2048 * 16 * 3 + 531)
-    full_p = _mk_pipe(impl)
+    (the multi-host partition unit), for both wire formats."""
+    L = BB // (4 if intype == "i16" else 8)
+    raw = _stream(intype, L * 16 * 3 + 531)
+    full_p = _mk_pipe(intype=intype)
     fo = io.BytesIO()
     full_p.run(io.BytesIO(raw), fo)
     full = fo.getvalue()
 
     split_blocks = 32                   # 2 chunks of 16
     cut = split_blocks * BB
-    pre = _mk_pipe(impl)
+    pre = _mk_pipe(intype=intype)
     po = io.BytesIO()
     pre.run(io.BytesIO(raw[:cut]), po)
-    suf = _mk_pipe(impl)
+    suf = _mk_pipe(intype=intype)
     suf.seek_to_block(split_blocks, history=raw[cut - BB:cut])
     so = io.BytesIO()
     suf.run(io.BytesIO(raw[cut:]), so)
@@ -113,14 +120,14 @@ def test_seek_to_block_bitwise(impl):
 
 def test_seek_to_block_mix_only():
     raw = i16_stream(2048 * 16 * 2 + 99)
-    full_p = _mk_pipe("xla", resample=False)
+    full_p = _mk_pipe(resample=False)
     fo = io.BytesIO()
     full_p.run(io.BytesIO(raw), fo)
     cut = 16 * BB
-    pre = _mk_pipe("xla", resample=False)
+    pre = _mk_pipe(resample=False)
     po = io.BytesIO()
     pre.run(io.BytesIO(raw[:cut]), po)
-    suf = _mk_pipe("xla", resample=False)
+    suf = _mk_pipe(resample=False)
     suf.seek_to_block(16)               # no history needed without FIR state
     so = io.BytesIO()
     suf.run(io.BytesIO(raw[cut:]), so)
@@ -128,29 +135,27 @@ def test_seek_to_block_mix_only():
 
 
 def test_seek_rejects_mid_stream_and_missing_history():
-    p = _mk_pipe("xla")
+    p = _mk_pipe()
     with pytest.raises(ValueError, match="history"):
         p.seek_to_block(16)             # resampler but no history bytes
-    p2 = _mk_pipe("xla", resample=False)
+    p2 = _mk_pipe(resample=False)
     p2._sample_offset = 5
     with pytest.raises(ValueError, match="fresh"):
         p2.seek_to_block(16)
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_seek_cascade_resumes_bitwise(impl):
-    """Round 3: distribute = seek works for the multi-stage cascade too —
-    one raw history block reconstructs every stage's FIR state, on both the
-    XLA cascade and the fused Pallas cascade path."""
+@pytest.mark.parametrize("intype", ["i16", "f32"])
+def test_seek_cascade_resumes_bitwise(intype):
+    """distribute = seek works for the multi-stage cascade too —
+    ``seek_history_blocks()`` raw history blocks reconstruct every stage's
+    FIR state, for both wire formats."""
     blocks = 48
-    raw = i16_stream(2048 * blocks)
+    L = BB // (4 if intype == "i16" else 8)
+    raw = _stream(intype, L * blocks)
 
     def mk():
-        p = Pipeline(FS, "i16", "i16", ConstScheduler(9000.0),
-                     chunk_blocks=16, impl=impl,
-                     pallas_interpret=impl == "pallas")
-        attach_resampler(p, 48000.0, stages="multi")
-        return p
+        return _mk_pipe(scheduler=ConstScheduler(9000.0), intype=intype,
+                        stages="multi")
 
     whole = io.BytesIO()
     mk().run(io.BytesIO(raw), whole)
@@ -158,25 +163,24 @@ def test_seek_cascade_resumes_bitwise(impl):
 
     k = 16                               # chunk-aligned split
     # output byte offset of the seeked host: chain per-stage ceil counts
-    n_in = k * 2048
+    n_in = k * L
     for st in mk().resampler.stages:
         n_in = -(-n_in * st.P // st.Q)
     m_lo = n_in
     p2 = mk()
-    p2.seek_to_block(k, history=raw[(k - 1) * BB:k * BB])
+    h = p2.seek_history_blocks()
+    p2.seek_to_block(k, history=raw[(k - h) * BB:k * BB])
     out2 = io.BytesIO()
     p2.run(io.BytesIO(raw[k * BB:]), out2)
     got = out2.getvalue()
-    want = whole[m_lo * 4:]
+    want = whole[m_lo * (4 if intype == "i16" else 8):]
     assert got == want and len(got) > 0
 
 
 def test_seek_cascade_odd_row_geometry_bitwise():
-    """ADVICE r3 (medium): a non-default block size whose L/128 rows don't
-    tile the halfband D=2 (block_bytes=8704 → L=2176 = 17 rows) is
-    streaming-eligible but used to CRASH seek_to_block, because the fused
-    replay forced blocks_per_step=1.  The replay now runs the chunk's own
-    validated W geometry (zero-prepadded), staying bitwise."""
+    """A non-default block size (block_bytes=8704 → L=2176 samples, not a
+    power of two) seeks the cascade bitwise: the history replay runs the
+    stream's own mix kernel and cascade ``process``."""
     bb = 8704
     L = bb // 4
     blocks = 48
@@ -184,13 +188,9 @@ def test_seek_cascade_odd_row_geometry_bitwise():
 
     def mk():
         p = Pipeline(FS, "i16", "i16", ConstScheduler(9000.0),
-                     chunk_blocks=16, block_bytes=bb, impl="pallas",
-                     pallas_interpret=True)
+                     chunk_blocks=16, block_bytes=bb)
         attach_resampler(p, 48000.0, stages="multi")
         return p
-
-    probe = mk()
-    assert probe._cascade_eligible(16 * L), "scenario must be fused-eligible"
 
     whole = io.BytesIO()
     mk().run(io.BytesIO(raw), whole)
@@ -201,7 +201,8 @@ def test_seek_cascade_odd_row_geometry_bitwise():
     for st in mk().resampler.stages:
         n_in = -(-n_in * st.P // st.Q)
     p2 = mk()
-    p2.seek_to_block(k, history=raw[(k - 1) * bb:k * bb])
+    h = p2.seek_history_blocks()
+    p2.seek_to_block(k, history=raw[(k - h) * bb:k * bb])
     out2 = io.BytesIO()
     p2.run(io.BytesIO(raw[k * bb:]), out2)
     assert out2.getvalue() == whole[n_in * 4:] and out2.getvalue()
@@ -450,19 +451,18 @@ def test_two_process_channels_split(tmp_path):
         assert a == b and len(a) > 0, f"ch{k} diverged"
 
 
-@pytest.mark.parametrize("impl", ["pallas", "xla"])
-def test_seek_multiblock_history_config5_rate(impl):
-    """Round 4: distribute = seek at BASELINE config 5's literal rate
+@pytest.mark.parametrize("chunk_blocks", [32, 16])
+def test_seek_multiblock_history_config5_rate(chunk_blocks):
+    """distribute = seek at BASELINE config 5's literal rate
     (100 Msps → 48 ksps) — the cascade's input-referred FIR state spans
-    tens of reference blocks, so seek_to_block now takes
+    several reference blocks, so seek_to_block takes
     ``seek_history_blocks()`` raw blocks of history (with their own plan
-    constants), staying bitwise on both device implementations."""
+    constants), staying bitwise at any chunk width."""
     fs = 100_000_000
 
     def mk():
         p = Pipeline(fs, "i16", "i16", ConstScheduler(1e6),
-                     chunk_blocks=32, impl=impl,
-                     pallas_interpret=impl == "pallas")
+                     chunk_blocks=chunk_blocks)
         attach_resampler(p, 48000, stages="multi")
         return p
 

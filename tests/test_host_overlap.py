@@ -1,8 +1,8 @@
-"""Host-planning / device-compute overlap (VERDICT r4 next #6).
+"""Host-planning / device-compute overlap.
 
-The attached-hardware throughput projection (docs/architecture.md: ~700
-MS/s host-bound from ~6-45 ms/chunk planning) rests on the claim that the
-run loops hide per-chunk host planning behind the device's execution of
+End to end on the card the pipeline is host-bound (PERF.md: the config-3
+and config-5 traces leave the device 93-99% idle), so its rate rests on the
+run loops hiding per-chunk host planning behind the device's execution of
 the PREVIOUS chunk (1-deep software pipelining).  These tests make that
 claim load-bearing: a fake device whose "compute" completes at a
 wall-clock deadline is driven through the real run loops, and total wall

@@ -184,17 +184,19 @@ def test_pipeline_cli_multistage(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Fully fused Pallas cascade (round 3, VERDICT r2 #5c/#7): one kernel for
-# mix + every stage + encode; intermediates never leave VMEM.
+# The cascade inside the streaming pipeline: against the golden model
+# (reference mix + per-stage polyphase oracle), across chunk widths,
+# checkpoints and seeks, for integer and odd-Q (split) rates.
 
-def _mk_pipe(impl, chunk=8, interpret=True, stages="multi"):
+
+def _mk_pipe(fs=FS, out_rate=48000, chunk=8, shift=9000.0, intype="i16",
+             outtype="i16", stages="multi"):
     from doppler_tpu.ops.resample import attach_resampler
     from doppler_tpu.runtime.pipeline import ConstScheduler, Pipeline
 
-    p = Pipeline(FS, "i16", "i16", ConstScheduler(9000.0),
-                 chunk_blocks=chunk, impl=impl,
-                 pallas_interpret=interpret and impl == "pallas")
-    attach_resampler(p, 48000, stages=stages)
+    p = Pipeline(fs, intype, outtype, ConstScheduler(shift),
+                 chunk_blocks=chunk)
+    attach_resampler(p, out_rate, stages=stages)
     return p
 
 
@@ -204,233 +206,129 @@ def _run_bytes(pipe, raw):
     return out.getvalue()
 
 
-def test_fused_cascade_kernel_streaming_and_w_invariance():
-    import jax.numpy as jnp
-
-    from doppler_tpu.ops.phase_plan import NCOState, plan_blocks
-    from doppler_tpu.ops.pallas.chain import (
-        carry_rows,
-        make_chain_taps,
-        mix_cascade_pallas_stream,
-    )
-
-    ms = MultiStageResampler(FS, 48000)
-    B, L = 8, 8192
-    rng = np.random.default_rng(12)
-    words = rng.integers(-(1 << 31), 1 << 31, size=(B, L),
-                         dtype=np.int64).astype(np.int32)
-    plan = plan_blocks([7000.0 + 1.5 * k for k in range(B)], [L] * B, FS,
-                       NCOState(), L)
-    arrs = [np.asarray(getattr(plan, f))
-            for f in ("d_hi", "d_lo", "c1_hi", "c1_lo", "c2_hi", "c2_lo", "t")]
-    n = len(ms.stages)
-    stages = tuple((st.P, st.Q, st.T) for st in ms.stages)
-    taps = tuple(
-        jnp.asarray(make_chain_taps(st.bank, st.P, st.Q,
-                                    pp=(st.P if i < n - 1 else None)))
-        for i, st in enumerate(ms.stages))
-    zc = tuple(jnp.zeros((2, carry_rows(st.T), 128), jnp.float32)
-               for st in ms.stages)
-    whole, _ = mix_cascade_pallas_stream(
-        jnp.asarray(words), *[jnp.asarray(a) for a in arrs], taps, zc,
-        stages=stages, interpret=True)
-    o1, c1 = mix_cascade_pallas_stream(
-        jnp.asarray(words[:4]), *[jnp.asarray(a[:4]) for a in arrs], taps, zc,
-        stages=stages, interpret=True)
-    o2, _ = mix_cascade_pallas_stream(
-        jnp.asarray(words[4:]), *[jnp.asarray(a[4:]) for a in arrs], taps, c1,
-        stages=stages, interpret=True)
-    split = np.concatenate([np.asarray(o1), np.asarray(o2)])
-    np.testing.assert_array_equal(split, np.asarray(whole))
-    # Explicit-W reruns of the SAME bytes in ONE kernel call change the
-    # interpret-mode program shape (grid step count, matmul M), and
-    # XLA:CPU's codegen/microkernel choices then round ≤1 ulp apart (the
-    # conv_stream_geometry K≥64 floor and the mix_tone FMA-contraction
-    # contract document the same phenomenon; the Mosaic MXU reduction is
-    # shape-invariant).  The product pipeline always streams at ONE fixed
-    # W per instance — that chaining is pinned bitwise above — so the
-    # cross-program check here pins ≤1 LSB.
-    for w in (4, 2):
-        ww, _ = mix_cascade_pallas_stream(
-            jnp.asarray(words), *[jnp.asarray(a) for a in arrs], taps, zc,
-            stages=stages, interpret=True, blocks_per_step=w)
-        iww = np.asarray(ww)
-        iwh = np.asarray(whole)
-        di = np.abs((iww << 16 >> 16) - (iwh << 16 >> 16))
-        dq = np.abs((iww >> 16) - (iwh >> 16))
-        assert max(di.max(), dq.max()) <= 1, w
+def _i16_raw(n, seed):
+    return np.random.default_rng(seed).integers(
+        -9000, 9000, size=2 * n, dtype=np.int16).astype("<i2").tobytes()
 
 
-def test_pipeline_fused_cascade_matches_xla_cascade():
-    n = 2048 * 33 + 500   # full chunks + ragged tail (fallback chunk)
-    rng = np.random.default_rng(0x77)
-    raw = rng.integers(-9000, 9000, size=2 * n,
-                       dtype=np.int16).astype("<i2").tobytes()
-    a = _run_bytes(_mk_pipe("xla"), raw)
-    pb = _mk_pipe("pallas")
-    b = _run_bytes(pb, raw)
-    assert pb._cascade_w is not None, "fused cascade did not engage"
-    assert len(a) == len(b)
-    xa = np.frombuffer(a, dtype="<i2").astype(np.int32)
-    xb = np.frombuffer(b, dtype="<i2").astype(np.int32)
-    d = np.abs(xa - xb)
-    assert d.max() <= 1
-    assert np.mean(d > 0) < 0.01
-    # chunk-width invariance of the fused path (bitwise)
-    c = _run_bytes(_mk_pipe("pallas", chunk=4), raw)
-    assert c == b
+def _golden(raw, fs, shift, stages, intype="i16"):
+    """Reference mix of the whole stream, then every stage's oracle."""
+    from doppler_tpu.ops.resample import resample_oracle
+    from doppler_tpu.runtime import native
+
+    x = (oracle.decode_i16_bytes(raw) if intype == "i16"
+         else oracle.decode_f32_bytes(raw))
+    i, q, _ = native.reference_mix(x.real, x.imag, 0, shift, fs)
+    z = i.astype(np.complex128) + 1j * q
+    for st in stages:
+        z = resample_oracle(z, st.P, st.Q, st.bank)
+    return z.astype(np.complex64)
 
 
-def test_pipeline_fused_cascade_checkpoint_resume_bitwise(tmp_path):
+def _score(got, want, outtype):
+    """SNR of the pipeline bytes against the golden model at the output
+    format; lengths must be identical."""
+    if outtype == "i16":
+        got_c = oracle.decode_i16_bytes(got)
+        want_c = oracle.decode_i16_bytes(oracle.encode_i16_bytes(want))
+    else:
+        got_c = oracle.decode_f32_bytes(got)
+        want_c = want
+    assert got_c.size == want_c.size > 0
+    return oracle.snr_db(want_c, got_c)
+
+
+def test_pipeline_cascade_chunk_width_bitwise():
+    """The cascade's output does not depend on how many blocks form a
+    device dispatch (ragged tail included)."""
+    raw = _i16_raw(2048 * 33 + 500, 0x77)
+    a = _run_bytes(_mk_pipe(chunk=8), raw)
+    for chunk in (4, 3, 16):
+        assert _run_bytes(_mk_pipe(chunk=chunk), raw) == a, chunk
+    want = _golden(raw, FS, 9000.0, MultiStageResampler(FS, 48000).stages)
+    assert _score(a, want, "i16") > 60.0
+
+
+def test_pipeline_cascade_checkpoint_resume_bitwise(tmp_path):
     from doppler_tpu.runtime import checkpoint
 
-    n = 2048 * 32
-    rng = np.random.default_rng(0x88)
-    raw = rng.integers(-9000, 9000, size=2 * n,
-                       dtype=np.int16).astype("<i2").tobytes()
-    whole = _run_bytes(_mk_pipe("pallas"), raw)
+    raw = _i16_raw(2048 * 32, 0x88)
+    whole = _run_bytes(_mk_pipe(), raw)
     half = len(raw) // 2
-    p1 = _mk_pipe("pallas")
+    p1 = _mk_pipe()
     part1 = _run_bytes(p1, raw[:half])
     ck = str(tmp_path / "casc.npz")
     checkpoint.save(ck, p1)
-    p2 = _mk_pipe("pallas")
+    p2 = _mk_pipe()
     checkpoint.restore(ck, p2)
     part2 = _run_bytes(p2, raw[half:])
     assert part1 + part2 == whole
 
 
-def test_fused_cascade_f32_formats():
-    from doppler_tpu.ops.resample import attach_resampler
-    from doppler_tpu.runtime.pipeline import ConstScheduler, Pipeline
-
-    n = 2048 * 16
-    rng = np.random.default_rng(0x99)
-    x = (0.4 * rng.standard_normal(2 * n)).astype("<f4")
-    raw = x.tobytes()
-
-    def run(impl):
-        p = Pipeline(FS, "f32", "f32", ConstScheduler(9000.0),
-                     chunk_blocks=8, impl=impl,
-                     pallas_interpret=impl == "pallas")
-        attach_resampler(p, 48000, stages="multi")
-        out = io.BytesIO()
-        p.run(io.BytesIO(raw), out)
-        return p, out.getvalue()
-
-    _, a = run("xla")
-    pb, b = run("pallas")
-    assert pb._cascade_w is not None
-    ya = np.frombuffer(a, dtype="<f4")
-    yb = np.frombuffer(b, dtype="<f4")
-    assert ya.size == yb.size
-    # f32 out: 1-ulp-grade agreement between formulations
-    num = np.sqrt(np.mean((ya - yb) ** 2))
-    den = np.sqrt(np.mean(ya ** 2)) + 1e-30
-    assert num / den < 1e-6
+@pytest.mark.parametrize("outtype", ["f32", "i16"])
+def test_cascade_f32_formats(outtype):
+    """f32 input through the cascade, to f32 and to i16, against the
+    golden model (>70 dB at f32 output: exact f32 products throughout)."""
+    n = 1024 * 16 * 3
+    raw = (0.4 * np.random.default_rng(0x99).standard_normal(2 * n)
+           ).astype("<f4").tobytes()
+    got = _run_bytes(_mk_pipe(intype="f32", outtype=outtype), raw)
+    want = _golden(raw, FS, 9000.0, MultiStageResampler(FS, 48000).stages,
+                   intype="f32")
+    assert _score(got, want, outtype) > (70.0 if outtype == "f32" else 60.0)
 
 
 def test_odd_q_rate_eligibility_story():
-    """VERDICT r2 #5b: rates whose reduced Q is odd (e.g. 250 ksps → 48 k,
-    Q=125) can never tile the 128-lane row single-stage — 'auto' therefore
-    routes heavy decimation through the cascade (fused front), and the
-    single-stage path still works via the XLA formulation."""
-    import jax.numpy as jnp
-
-    from doppler_tpu.ops.resample import RationalResampler, attach_resampler
-    from doppler_tpu.ops.pallas.chain import make_chain_taps
-    from doppler_tpu.runtime.pipeline import ConstScheduler, Pipeline
+    """Rates whose reduced Q is odd (250 ksps → 48 k, Q=125): 'auto'
+    routes the ~5.2x decimation through the cascade (÷2 front, odd-Q
+    rational tail), 'single' keeps one polyphase stage; both produce a
+    48 k stream of the same length up to filter delay."""
+    from doppler_tpu.ops.resample import RationalResampler
 
     fs2 = 250000
     rs = RationalResampler(fs2, 48000)
-    assert rs.Q == 125 and 128 % rs.Q != 0
-    with pytest.raises(ValueError, match="128 % Q"):
-        make_chain_taps(rs.bank, rs.P, rs.Q)     # the mathematical limit
-
-    n = 2048 * 8
-    rng = np.random.default_rng(0xAA)
-    raw = rng.integers(-9000, 9000, size=2 * n,
-                       dtype=np.int16).astype("<i2").tobytes()
-
-    def run(stages):
-        p = Pipeline(fs2, "i16", "i16", ConstScheduler(5000.0),
-                     chunk_blocks=4, impl="pallas", pallas_interpret=True)
-        attach_resampler(p, 48000, stages=stages)
-        out = io.BytesIO()
-        p.run(io.BytesIO(raw), out)
-        return p, out.getvalue()
-
-    p_auto, a = run("auto")
-    # 250k/48k is ~5.2x: one halfband then a Q∤128 tail — round 4's SPLIT
-    # cascade fuses the halfband front (final_dense f32 planes) and runs
-    # only the final rational stage via XLA, at half the input rate
-    assert getattr(p_auto.resampler, "stages", None) is not None
-    assert p_auto._cascade_w is not None, "split front did not engage"
-    assert p_auto._cascade_k == 1 < len(p_auto.resampler.stages)
-    p_single, b = run("single")
+    assert rs.Q == 125
+    raw = _i16_raw(2048 * 8, 0xAA)
+    p_auto = _mk_pipe(fs=fs2, chunk=4, shift=5000.0, stages="auto")
+    a = _run_bytes(p_auto, raw)
+    stages = p_auto.resampler.stages
+    assert [st.Q for st in stages] == [2, 125]
+    p_single = _mk_pipe(fs=fs2, chunk=4, shift=5000.0, stages="single")
+    b = _run_bytes(p_single, raw)
     assert getattr(p_single.resampler, "stages", None) is None
-    # both structures produce a 48 k stream of the same length ±filter delay
     assert abs(len(a) - len(b)) <= 4 * 8
     assert len(a) > 0 and len(b) > 0
 
 
-# ---------------------------------------------------------------------------
-# Split cascade (round 4, VERDICT r3 next #1): rates whose reduced final Q
-# doesn't tile 128 lanes (odd Q — incl. BASELINE config 5's 384/3125 tail)
-# keep the heavy ÷2^k front in the fused kernel; only the final rational
-# stage runs via XLA, at 1/2^k of the input rate.
-
-
-def _mk_split(fs, impl, chunk=8, interpret=True):
-    from doppler_tpu.ops.resample import attach_resampler
-    from doppler_tpu.runtime.pipeline import ConstScheduler, Pipeline
-
-    p = Pipeline(fs, "i16", "i16", ConstScheduler(5000.0),
-                 chunk_blocks=chunk, impl=impl,
-                 pallas_interpret=interpret and impl == "pallas")
-    attach_resampler(p, 48000, stages="multi")
-    return p
+def _mk_split(fs, chunk=8):
+    return _mk_pipe(fs=fs, chunk=chunk, shift=5000.0)
 
 
 @pytest.mark.parametrize("fs", [250000, 6250000])
-def test_split_cascade_fused_front_engages_and_matches_xla(fs):
-    """Q=125-class and Q=3125-class (config 5's own tail) rates run the
-    fused front — asserted on the dispatch path — and agree with the
-    all-XLA cascade within the usual 1-LSB formulation tolerance;
-    chunk-width invariance of the split path is bitwise."""
-    n = 2048 * 24 + 300
-    rng = np.random.default_rng(0xAB ^ fs)
-    raw = rng.integers(-9000, 9000, size=2 * n,
-                       dtype=np.int16).astype("<i2").tobytes()
-    a = _run_bytes(_mk_split(fs, "xla"), raw)
-    pb = _mk_split(fs, "pallas")
-    b = _run_bytes(pb, raw)
-    assert pb._cascade_w is not None, "split front did not engage"
-    assert 1 <= pb._cascade_k < len(pb.resampler.stages)
-    assert pb.resampler.stages[-1].Q % 2 == 1      # odd-Q tail
-    xa = np.frombuffer(a, dtype="<i2").astype(np.int32)
-    xb = np.frombuffer(b, dtype="<i2").astype(np.int32)
-    assert xa.size == xb.size
-    d = np.abs(xa - xb)
-    assert d.max() <= 1 and np.mean(d > 0) < 0.01
-    c = _run_bytes(_mk_split(fs, "pallas", chunk=4), raw)
-    assert c == b
+def test_split_cascade_matches_oracle(fs):
+    """Q=125-class and Q=3125-class (config 5's own tail) rates: the odd-Q
+    cascade matches the golden model and is chunk-width bitwise."""
+    raw = _i16_raw(2048 * 24 + 300, 0xAB ^ fs)
+    pa = _mk_split(fs)
+    a = _run_bytes(pa, raw)
+    assert pa.resampler.stages[-1].Q % 2 == 1      # odd-Q tail
+    assert _run_bytes(_mk_split(fs, chunk=4), raw) == a
+    assert _score(a, _golden(raw, fs, 5000.0, pa.resampler.stages),
+                  "i16") > 60.0
 
 
 def test_split_cascade_checkpoint_resume_bitwise(tmp_path):
     from doppler_tpu.runtime import checkpoint
 
     fs = 250000
-    raw = np.random.default_rng(0xCE).integers(
-        -9000, 9000, size=2 * 2048 * 32, dtype=np.int16
-    ).astype("<i2").tobytes()
-    whole = _run_bytes(_mk_split(fs, "pallas"), raw)
+    raw = _i16_raw(2048 * 32, 0xCE)
+    whole = _run_bytes(_mk_split(fs), raw)
     half = len(raw) // 2
-    p1 = _mk_split(fs, "pallas")
+    p1 = _mk_split(fs)
     part1 = _run_bytes(p1, raw[:half])
     ck = str(tmp_path / "split.npz")
     checkpoint.save(ck, p1)
-    p2 = _mk_split(fs, "pallas")
+    p2 = _mk_split(fs)
     checkpoint.restore(ck, p2)
     part2 = _run_bytes(p2, raw[half:])
     assert part1 + part2 == whole
@@ -439,16 +337,15 @@ def test_split_cascade_checkpoint_resume_bitwise(tmp_path):
 def test_split_cascade_seek_resumes_bitwise():
     fs = 250000
     bb = 8192
-    raw = np.random.default_rng(0xCF).integers(
-        -9000, 9000, size=2 * 2048 * 32, dtype=np.int16
-    ).astype("<i2").tobytes()
-    whole = _run_bytes(_mk_split(fs, "pallas"), raw)
+    raw = _i16_raw(2048 * 32, 0xCF)
+    whole = _run_bytes(_mk_split(fs), raw)
     k = 16
     n_in = k * 2048
-    p2 = _mk_split(fs, "pallas")
+    p2 = _mk_split(fs)
     for st in p2.resampler.stages:
         n_in = -(-n_in * st.P // st.Q)
-    p2.seek_to_block(k, history=raw[(k - 1) * bb:k * bb])
+    h = p2.seek_history_blocks()
+    p2.seek_to_block(k, history=raw[(k - h) * bb:k * bb])
     out = io.BytesIO()
     p2.run(io.BytesIO(raw[k * bb:]), out)
     assert out.getvalue() == whole[n_in * 4:] and out.getvalue()
@@ -460,125 +357,29 @@ def test_split_cascade_seek_resumes_bitwise():
     (5_000_000, 125000),   # ÷8·÷2 front, 2/5 tail (Q=5)
 ])
 def test_split_cascade_arbitrary_rates(fs, out_rate):
-    """Rate fuzz for the split machinery: assorted odd-Q tails with
-    different greedy fronts all engage the fused front, agree with the
-    all-XLA cascade within 1 LSB, and are chunk-width bitwise."""
+    """Rate fuzz for odd-Q tails behind different greedy fronts: each
+    matches the golden model and is chunk-width bitwise."""
     ms = MultiStageResampler(fs, out_rate)
     assert ms.stages[-1].Q % 2 == 1          # odd-Q tail by construction
-
-    def mk(impl, chunk=8):
-        from doppler_tpu.ops.resample import attach_resampler
-        from doppler_tpu.runtime.pipeline import ConstScheduler, Pipeline
-
-        p = Pipeline(fs, "i16", "i16", ConstScheduler(fs / 100.0),
-                     chunk_blocks=chunk, impl=impl,
-                     pallas_interpret=impl == "pallas")
-        attach_resampler(p, out_rate, stages="multi")
-        return p
-
-    rng = np.random.default_rng(fs ^ out_rate)
-    raw = rng.integers(-9000, 9000, size=2 * 2048 * 16,
-                       dtype=np.int16).astype("<i2").tobytes()
-    a = _run_bytes(mk("xla"), raw)
-    pb = mk("pallas")
-    b = _run_bytes(pb, raw)
-    assert pb._cascade_w is not None, "split front did not engage"
-    assert 1 <= pb._cascade_k < len(pb.resampler.stages)
-    xa = np.frombuffer(a, dtype="<i2").astype(np.int32)
-    xb = np.frombuffer(b, dtype="<i2").astype(np.int32)
-    assert xa.size == xb.size and xa.size > 0
-    d = np.abs(xa - xb)
-    assert d.max() <= 1 and np.mean(d > 0) < 0.01
-    c = _run_bytes(mk("pallas", chunk=4), raw)
-    assert c == b
+    raw = _i16_raw(2048 * 16, fs ^ out_rate)
+    shift = fs / 100.0
+    a = _run_bytes(_mk_pipe(fs=fs, out_rate=out_rate, shift=shift), raw)
+    b = _run_bytes(_mk_pipe(fs=fs, out_rate=out_rate, shift=shift, chunk=4),
+                   raw)
+    assert a == b
+    assert _score(a, _golden(raw, fs, shift, ms.stages), "i16") > 60.0
 
 
 def test_split_cascade_f32_formats():
-    """f32 wire formats ride the split path too: the planar front planes
-    and the XLA tail agree with the all-XLA cascade at 1-ulp grade."""
-    from doppler_tpu.ops.resample import attach_resampler
-    from doppler_tpu.runtime.pipeline import ConstScheduler, Pipeline
-
+    """f32 wire formats through the odd-Q cascade, to f32 and to i16,
+    against the golden model."""
     fs = 250000
-    rng = np.random.default_rng(0xF5)
-    raw = (0.4 * rng.standard_normal(2 * 1024 * 16 * 4)).astype("<f4").tobytes()
-
-    def run(impl, ot):
-        p = Pipeline(fs, "f32", ot, ConstScheduler(5000.0),
-                     chunk_blocks=16, impl=impl,
-                     pallas_interpret=impl == "pallas")
-        attach_resampler(p, 48000, stages="multi")
-        out = io.BytesIO()
-        p.run(io.BytesIO(raw), out)
-        return p, out.getvalue()
-
-    for ot in ("f32", "i16"):
-        pa, a = run("xla", ot)
-        pb, b = run("pallas", ot)
-        assert pb._cascade_w is not None and pb._cascade_k == 1
-        if ot == "f32":
-            ya = np.frombuffer(a, "<f4")
-            yb = np.frombuffer(b, "<f4")
-            assert ya.size == yb.size and ya.size > 0
-            rel = (np.sqrt(np.mean((ya - yb) ** 2))
-                   / (np.sqrt(np.mean(ya ** 2)) + 1e-30))
-            assert rel < 1e-6, rel
-        else:
-            ya = np.frombuffer(a, "<i2").astype(np.int32)
-            yb = np.frombuffer(b, "<i2").astype(np.int32)
-            assert ya.size == yb.size and np.abs(ya - yb).max() <= 1
-
-
-def test_cascade_split3_precision_bound():
-    """'fast' (split3) cascade: ≤1 LSB and ≥80 dB vs the exact cascade,
-    with bitwise blocks_per_step invariance, on the config-3 shape."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from doppler_tpu.ops import codec
-    from doppler_tpu.ops.multistage import MultiStageResampler
-    from doppler_tpu.ops.pallas.chain import (
-        carry_rows,
-        make_chain_taps,
-        mix_cascade_pallas_stream,
-    )
-    from doppler_tpu.ops.phase_plan import NCOState, plan_blocks
-
-    rng = np.random.default_rng(0x53)
-    fs, L, B = 1_024_000, 4096, 8
-    ms = MultiStageResampler(fs, 48000)
-    nst = len(ms.stages)
-    stages_cfg = tuple((st.P, st.Q, st.T) for st in ms.stages)
-    taps = tuple(
-        jnp.asarray(make_chain_taps(
-            st.bank, st.P, st.Q, pp=(st.P if i < nst - 1 else None)))
-        for i, st in enumerate(ms.stages))
-    carries = tuple(
-        jnp.zeros((2, carry_rows(st.T), 128), jnp.float32)
-        for st in ms.stages)
-    words = rng.integers(-(1 << 31), 1 << 31, size=(B, L),
-                         dtype=np.int64).astype(np.int32)
-    plan = plan_blocks([7000.0 + k for k in range(B)], [L] * B, fs,
-                       NCOState(), L)
-    arrs = (plan.d_hi, plan.d_lo, plan.c1_hi, plan.c1_lo,
-            plan.c2_hi, plan.c2_lo, plan.t)
-
-    def run(prec, w=None):
-        out, _ = mix_cascade_pallas_stream(
-            jnp.asarray(words), *arrs, taps, carries, stages=stages_cfg,
-            interpret=True, dot_precision=prec, blocks_per_step=w)
-        return np.asarray(out)
-
-    exact = run("highest")
-    fast = run("split3")
-    ge, we = (np.frombuffer(codec.i16_words_to_bytes(a.reshape(-1)),
-                            dtype="<i2").astype(np.int32)
-              for a in (fast, exact))
-    d = np.abs(ge - we)
-    assert d.max() <= 1, d.max()
-    err = (ge - we) / 32768.0
-    sig = we / 32768.0
-    snr = 10 * np.log10((sig ** 2).mean() / max((err ** 2).mean(), 1e-30))
-    assert snr > 80.0, snr
-    for w in (2, 4, 8):
-        np.testing.assert_array_equal(fast, run("split3", w=w))
+    raw = (0.4 * np.random.default_rng(0xF5).standard_normal(
+        2 * 1024 * 16 * 4)).astype("<f4").tobytes()
+    for outtype in ("f32", "i16"):
+        p = _mk_pipe(fs=fs, chunk=16, shift=5000.0, intype="f32",
+                     outtype=outtype)
+        got = _run_bytes(p, raw)
+        want = _golden(raw, fs, 5000.0, p.resampler.stages, intype="f32")
+        bar = 70.0 if outtype == "f32" else 60.0
+        assert _score(got, want, outtype) > bar, outtype

@@ -32,22 +32,6 @@ def test_i16_encode_matches_oracle():
     assert got == want
 
 
-def test_f32_planar_roundtrip():
-    """The planar staging codecs (Pipeline._stage_in/_stage_out planar=True
-    paths) must deinterleave/interleave exactly, including into padded
-    destination rows."""
-    pairs = RNG.normal(size=(777, 2)).astype("<f4")
-    i_out = np.zeros(1024, dtype="<f4")
-    q_out = np.zeros(1024, dtype="<f4")
-    native.f32_pairs_to_planar_into(pairs, i_out, q_out)
-    np.testing.assert_array_equal(i_out[:777], pairs[:, 0])
-    np.testing.assert_array_equal(q_out[:777], pairs[:, 1])
-    assert not i_out[777:].any() and not q_out[777:].any()
-
-    back = native.planar_to_f32_pairs(i_out[:777], q_out[:777])
-    np.testing.assert_array_equal(back, pairs)
-
-
 def test_reference_mix_matches_numpy_oracle():
     n = 30000  # crosses the 9660.609375/256000 rounding reset at 20802
     x = (0.3 * (RNG.normal(size=n) + 1j * RNG.normal(size=n))).astype(np.complex64)
@@ -65,3 +49,38 @@ def test_reference_mix_samplenum_thread():
     _, _, sn1 = native.reference_mix(x.real, x.imag, 0, -15000.0, 256000)
     _, want_sn = oracle.shift_frequency_oracle(x, 0, -15000.0, 256000)
     assert sn1 == want_sn
+
+
+def test_load_always_runs_make(monkeypatch):
+    """The library is rebuilt from the tracked sources in every process
+    (``make`` is a no-op when up to date), so a stale build is never
+    loaded just because it exists."""
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native.subprocess, "run", fake_run)
+    assert native._LIB_PATH.exists()
+    native._load()
+    assert calls and calls[0][:2] == ["make", "-C"]
+
+
+@pytest.mark.parametrize("error", [
+    native.subprocess.CalledProcessError(2, ["make"]),   # sources broken
+    FileNotFoundError("make"),                            # no toolchain
+])
+def test_failed_build_ignores_an_old_library(monkeypatch, error):
+    """A library left in native/build/ by an earlier build is not loaded
+    when make fails: the NumPy fallback runs instead."""
+    def fake_run(cmd, **kw):
+        raise error
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native.subprocess, "run", fake_run)
+    assert native._LIB_PATH.exists()
+    assert native.available() is False
+    x = np.array([0.5, -0.25, 1.5, -2.0], dtype=np.float32)
+    got = native.planar_to_i16(x, x[::-1]).tobytes()
+    assert got == oracle.encode_i16_bytes((x + 1j * x[::-1]).astype(np.complex64))

@@ -146,7 +146,7 @@ def test_pipeline_with_resampler_end_to_end():
 
 
 def test_fast_path_matches_oracle():
-    """Windows+matmul fast path (TPU MXU formulation) vs the NumPy oracle."""
+    """Windows+matmul block formulation vs the NumPy oracle."""
     import jax.numpy as jnp
 
     from doppler_tpu.ops.resample import make_taps_matrix, resample_conv_block

@@ -53,11 +53,10 @@ def f32_stream(n):
 
 
 def run_pipe(raw, mesh, *, intype="i16", outtype="i16", resample=None,
-             scheduler=None, chunk_blocks=16, impl="xla"):
+             scheduler=None, chunk_blocks=16):
     pipe = Pipeline(FS, intype, outtype,
                     scheduler or ConstScheduler(-15000.0),
-                    chunk_blocks=chunk_blocks, mesh=mesh, impl=impl,
-                    pallas_interpret=impl == "pallas")
+                    chunk_blocks=chunk_blocks, mesh=mesh)
     if resample:
         attach_resampler(pipe, resample)
     out = io.BytesIO()
@@ -186,8 +185,8 @@ def test_cli_mesh_flag_identical(devices_ok, tmp_path):
         proc = subprocess.run(
             [sys.executable, "-m", "doppler_tpu", "const",
              "-s", str(FS), "-i", "i16", "--shift", "-15000",
-             "--resample-to", "48000", "--chunk-blocks", "16",
-             "--platform", "cpu"] + extra,
+             "--resample-to", "48000", "--resample-stages", "single",
+             "--chunk-blocks", "16", "--platform", "cpu"] + extra,
             input=raw, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             timeout=300, cwd=repo, env=env,
         )
@@ -219,186 +218,104 @@ def test_cli_mesh_rejects_channel_outside_channels_mode(devices_ok):
         logger.setLevel(saved[2])
 
 
-def test_mesh_pallas_chain_identical_any_width(devices_ok):
-    """--impl pallas --mesh: the sharded fused-chain step must emit the
-    same bytes as the unsharded fused chain, at any mesh width, including
-    the partial-tail fallback chunk (VERDICT r2 item 1)."""
-    raw = i16_stream(2048 * 16 * 3 + 4321)
-    a = run_pipe(raw, None, resample=48000.0, impl="pallas")
-    for n_time in (2, 4, 8):
-        b = run_pipe(raw, make_mesh(time=n_time, channel=1),
-                     resample=48000.0, impl="pallas")
-        assert a == b, f"pallas mesh time={n_time} diverged"
 
 
-def test_mesh_pallas_chain_track_schedule(devices_ok):
-    raw = i16_stream(2048 * 16 * 2 + 999)
-    a = run_pipe(raw, None, scheduler=VaryScheduler(), resample=48000.0,
-                 impl="pallas")
-    b = run_pipe(raw, make_mesh(time=4, channel=1),
-                 scheduler=VaryScheduler(), resample=48000.0, impl="pallas")
-    assert a == b
+# ---------------------------------------------------------------------------
+# Config-5 topology: the channel-sharded XLA cascade (--mesh channel=N)
+# ---------------------------------------------------------------------------
+
+def _channels_run(fs, mesh, raw, *, outtype="i16", n=8, stages="multi",
+                  out_rate=48000, chunk_blocks=16, rates=None):
+    specs = [ChannelSpec(name=f"ch{k}",
+                         scheduler=ConstScheduler(-30000.0 + 8000 * k),
+                         out_rate=None if rates is None else rates[k])
+             for k in range(n)]
+    mp = MultiChannelPipeline(fs, "i16", outtype, specs, out_rate=out_rate,
+                              chunk_blocks=chunk_blocks, mesh=mesh,
+                              resample_stages=stages)
+    outs = [io.BytesIO() for _ in specs]
+    mp.run(io.BytesIO(raw), outs)
+    return mp, [o.getvalue() for o in outs]
 
 
-def test_mesh_pallas_chain_checkpoint_resume(devices_ok):
-    from doppler_tpu.runtime import checkpoint
-
-    raw = i16_stream(2048 * 16 * 4)
-    full = run_pipe(raw, None, resample=48000.0, impl="pallas")
-
-    cut = 2048 * 16 * 2 * 4
-    mesh = make_mesh(time=4, channel=1)
-
-    def mk():
-        p = Pipeline(FS, "i16", "i16", ConstScheduler(-15000.0),
-                     chunk_blocks=16, mesh=mesh, impl="pallas",
-                     pallas_interpret=True)
-        attach_resampler(p, 48000.0)
-        return p
-
-    p1 = mk()
-    out1 = io.BytesIO()
-    p1.run(io.BytesIO(raw[:cut]), out1)
-    state = io.BytesIO()
-    checkpoint.save(state, p1)
-    state.seek(0)
-
-    p2 = mk()
-    checkpoint.restore(state, p2)
-    out2 = io.BytesIO()
-    p2.run(io.BytesIO(raw[cut:]), out2)
-    assert out1.getvalue() + out2.getvalue() == full
+def _assert_within_1lsb(a, b, dtype):
+    """The contract for differently batched programs: identical lengths,
+    ≤ 1 LSB (ops/sincos.py mix_tone)."""
+    for x, y in zip(a, b):
+        xa = np.frombuffer(x, dtype).astype(np.float64)
+        xb = np.frombuffer(y, dtype).astype(np.float64)
+        assert xa.size == xb.size and xa.size > 0
+        if dtype == "<i2":
+            assert np.abs(xa - xb).max() <= 1
+        else:
+            lsb = np.spacing(np.abs(xa).astype(np.float32)).astype(np.float64)
+            assert (np.abs(xa - xb) <= lsb).all()
 
 
-def test_mesh_pallas_sharded_program_is_the_chain(devices_ok):
-    """The per-shard device program under --impl pallas --mesh must BE the
-    fused Pallas chain (two pallas_calls: halo replay + main), not the XLA
-    window/conv formulation (VERDICT r2 weak #2)."""
+@pytest.mark.parametrize("outtype", ["i16", "f32"])
+@pytest.mark.parametrize("n_chan", [2, 4, 8])
+def test_mesh_channels_cascade_identical(devices_ok, n_chan, outtype):
+    """--mesh channel=N with a multi-stage cascade runs the channel-sharded
+    XLA cascade step and matches the unsharded run (≤1 LSB contract;
+    identical lengths), full chunks and the partial EOF chunk alike."""
+    raw = i16_stream(2048 * 16 * 2 + 1500)
+    _, a = _channels_run(FS, None, raw, outtype=outtype)
+    mp, b = _channels_run(FS, make_mesh(channel=n_chan), raw, outtype=outtype)
+    assert ("casc", 0) in mp._sharded_steps, "sharded cascade not used"
+    _assert_within_1lsb(a, b, "<i2" if outtype == "i16" else "<f4")
+
+
+def test_mesh_channels_cascade_state_lives_on_owning_card(devices_ok):
+    """Each stage's FIR history stays sharded over the channel axis after a
+    sharded chunk (no gather to one device between chunks)."""
     raw = i16_stream(2048 * 16 * 2)
-    mesh = make_mesh(time=4, channel=1)
-    pipe = Pipeline(FS, "i16", "i16", ConstScheduler(-15000.0),
-                    chunk_blocks=16, mesh=mesh, impl="pallas",
-                    pallas_interpret=True)
-    attach_resampler(pipe, 48000.0)
-    pipe.run(io.BytesIO(raw), io.BytesIO())
-    assert pipe._sharded_chain_step is not None, "chain step never built"
-    assert pipe._sharded_rs_step is None, "XLA sharded step was built too"
+    mp, _ = _channels_run(FS, make_mesh(channel=4), raw)
+    for st in mp.resampler.stages:
+        for h in (st._hist_i, st._hist_q):
+            assert h.shape == (8, st.T - 1)
+            assert len(h.sharding.device_set) == 4
+            assert h.sharding.spec[0] == "channel"
 
-    # inspect the actual program: both the halo replay and the main call
-    # must be pallas_call primitives inside the shard_map
-    from doppler_tpu.ops.pallas.chain import carry_rows, make_chain_taps
+
+def test_mesh_channels_cascade_step_has_no_collective(devices_ok):
+    """Channels are independent: the sharded cascade program exchanges
+    nothing between cards."""
     import jax.numpy as jnp
+    from doppler_tpu.ops.multistage import MultiStageResampler
+    from doppler_tpu.parallel.sharded import make_cascade_channels_step
 
-    rs = pipe.resampler
-    B, L = 16, 2048
-    taps = jnp.asarray(make_chain_taps(rs.bank, rs.P, rs.Q))
-    carry = jnp.zeros((2, carry_rows(rs.T), 128), jnp.float32)
-    words = jnp.zeros((B, L), jnp.int32)
-    plans = [jnp.zeros((1, B), jnp.uint32) for _ in range(7)]
-    jaxpr = str(jax.make_jaxpr(pipe._sharded_chain_step)(
-        words, *plans, carry, taps
-    ))
-    assert jaxpr.count("pallas_call") >= 2
-    assert "ppermute" in jaxpr
-
-
-def test_mesh_pallas_chain_f32_identical(devices_ok):
-    """f32 wire formats through the sharded fused chain: byte-identical to
-    the unsharded fused-chain run at any mesh width."""
-    raw = f32_stream(2048 * 16 * 2 + 555)
-    a = run_pipe(raw, None, intype="f32", outtype="f32", resample=48000.0,
-                 impl="pallas")
-    for n_time in (2, 8):
-        b = run_pipe(raw, make_mesh(time=n_time, channel=1), intype="f32",
-                     outtype="f32", resample=48000.0, impl="pallas")
-        assert a == b, f"f32 pallas mesh time={n_time} diverged"
-
-
-def test_mesh_pallas_cascade_byte_identical(devices_ok):
-    """Round 3 (VERDICT r2 #7): --mesh + --impl pallas with a multi-stage
-    cascade runs the sharded fused-cascade step (per-stage halo-block
-    replay) and still emits the unsharded bytes — no fallback warning."""
-    raw = i16_stream(2048 * 16 * 3 + 3000)   # full chunks + partial tail
-
-    def run(mesh):
-        pipe = Pipeline(FS, "i16", "i16", VaryScheduler(),
-                        chunk_blocks=16, mesh=mesh, impl="pallas",
-                        pallas_interpret=True)
-        attach_resampler(pipe, 48000, stages="multi")
-        out = io.BytesIO()
-        pipe.run(io.BytesIO(raw), out)
-        return out.getvalue(), pipe
-
-    a, _ = run(None)
-    mesh = make_mesh(time=4, channel=1)
-    b, pipe = run(mesh)
-    assert pipe._sharded_cascade_step is not None, \
-        "sharded cascade step did not engage"
-    assert a == b and len(a) > 0
-
-
-def test_mesh_pallas_cascade_f32(devices_ok):
-    raw = f32_stream(2048 * 16 * 2)
-
-    def run(mesh):
-        pipe = Pipeline(FS, "f32", "f32", ConstScheduler(-15000.0),
-                        chunk_blocks=16, mesh=mesh, impl="pallas",
-                        pallas_interpret=True)
-        attach_resampler(pipe, 48000, stages="multi")
-        out = io.BytesIO()
-        pipe.run(io.BytesIO(raw), out)
-        return out.getvalue(), pipe
-
-    a, _ = run(None)
-    b, pipe = run(make_mesh(time=4, channel=1))
-    assert pipe._sharded_cascade_step is not None
-    assert a == b and len(a) > 0
+    ms = MultiStageResampler(FS, 48000, channels=4)
+    step = make_cascade_channels_step(make_mesh(channel=4), intype="i16",
+                                      outtype="i16", C=4, resampler=ms)
+    B, L = 4, 2048
+    args = ([jnp.zeros((B, L), jnp.int32)]
+            + [jnp.zeros((4, B), jnp.uint32)] * 7
+            + [jnp.zeros((4, st.T - 1), jnp.float32)
+               for st in ms.stages for _ in range(2)]
+            + [jnp.int32(0)] * (3 * len(ms.stages)))
+    text = str(jax.make_jaxpr(step)(*args))
+    for coll in ("ppermute", "psum", "all_gather", "all_to_all"):
+        assert coll not in text, coll
 
 
 def test_mesh_channels_cascade_and_split(devices_ok):
-    """Round 4 (VERDICT r3 next #5): channels --mesh with a multi-stage
-    cascade runs the sharded channel-batched fused step — fully fused
-    (1.024M→48k) and SPLIT (250k→48k, odd-Q tail) — matching the
-    unsharded run within the 1-LSB mix_tone contraction tolerance (the
-    per-shard program batches C_loc ≠ C channels, so XLA:CPU's
-    per-program FMA choice may flip isolated samples; lengths exact, no
-    fallback warning)."""
-
-    def specs():
-        return [
-            ChannelSpec(name=f"ch{k}",
-                        scheduler=ConstScheduler(-30000.0 + 8000 * k))
-            for k in range(4)
-        ]
-
+    """Channels --mesh with a multi-stage cascade, fully integer
+    (1.024M→48k) and SPLIT (250k→48k, odd-Q rational tail): the
+    channel-sharded step covers both, ≤1 LSB vs unsharded."""
+    raw = i16_stream(2048 * 16 * 2 + 900)
     for fs in (1024000, 250000):
-        raw = i16_stream(2048 * 16 * 2)
-
-        def run(mesh):
-            mp = MultiChannelPipeline(fs, "i16", "i16", specs(),
-                                      out_rate=48000, chunk_blocks=16,
-                                      mesh=mesh, impl="pallas",
-                                      pallas_interpret=True,
-                                      resample_stages="multi")
-            outs = [io.BytesIO() for _ in range(4)]
-            mp.run(io.BytesIO(raw), outs)
-            return mp, [o.getvalue() for o in outs]
-
-        _, a = run(None)
-        mp, b = run(make_mesh(time=2, channel=2))
-        for x, y in zip(a, b):
-            xa = np.frombuffer(x, "<i2").astype(np.int32)
-            xb = np.frombuffer(y, "<i2").astype(np.int32)
-            assert xa.size == xb.size and xa.size > 0, f"fs={fs}"
-            assert np.abs(xa - xb).max() <= 1, f"fs={fs}"
-        assert not mp._warned, mp._warned
-        assert ("casc", 0) in mp._sharded_steps, "sharded cascade not used"
+        _, a = _channels_run(fs, None, raw, n=4)
+        mp, b = _channels_run(fs, make_mesh(channel=2), raw, n=4)
+        if fs == 250000:
+            assert mp.resampler.stages[-1].Q % 2 == 1
+        assert ("casc", 0) in mp._sharded_steps
+        _assert_within_1lsb(a, b, "<i2")
 
 
 def test_mesh_channels_mixed_rates(devices_ok):
-    """Round 4: mixed per-channel output rates dispatch per rate group on
-    the mesh (each group's channels divide the channel axis), bytes equal
-    to the unsharded run, no fallback warning."""
+    """Mixed per-channel output rates dispatch per rate group on the mesh
+    (each group's channels divide the channel axis), bytes equal to the
+    unsharded run."""
     raw = i16_stream(2048 * 16 * 2 + 3000)
 
     def specs():
@@ -423,49 +340,63 @@ def test_mesh_channels_mixed_rates(devices_ok):
     _, a = run(None)
     mp, b = run(make_mesh(time=2, channel=2))
     assert a == b and all(len(x) > 0 for x in a)
-    assert not mp._warned, mp._warned
     assert ("rs", 0) in mp._sharded_steps and ("rs", 1) in mp._sharded_steps
 
 
-def test_mesh_pallas_split_cascade(devices_ok):
-    """Round 4: single-stream --mesh with an odd-Q cascade runs the fused
-    ÷2^k front SHARDED (final_dense planes + halo replay) with the XLA
-    tail on the gathered planes — matching the unsharded run within the
-    1-LSB program-shape tolerance (the per-shard front is a differently
-    shaped interpret-mode program than the unsharded front; the fused
-    i16 paths pin byte equality, f32 planes carry the 1-ulp wobble into
-    the tail).  Lengths exact; the sharded step must engage."""
-    for fs in (250000, 6250000):
-        def mk(mesh):
-            pipe = Pipeline(fs, "i16", "i16", ConstScheduler(5000.0),
-                            chunk_blocks=16, impl="pallas",
-                            pallas_interpret=True, mesh=mesh)
-            attach_resampler(pipe, 48000, stages="multi")
-            return pipe
+def test_mesh_channels_cascade_checkpoint_resume(devices_ok):
+    """A channel-sharded cascade run cut at a chunk boundary, checkpointed
+    and resumed (still sharded) reproduces the uninterrupted sharded run
+    bitwise, and the unsharded run within the 1-LSB contract."""
+    from doppler_tpu.runtime import checkpoint
 
-        raw = np.random.default_rng(fs).integers(
-            -9000, 9000, size=2 * 2048 * 33, dtype=np.int16
-        ).astype("<i2").tobytes()
-        ao = io.BytesIO()
-        mk(None).run(io.BytesIO(raw), ao)
-        pm = mk(make_mesh(time=4, channel=1))
-        assert pm._cascade_mesh_ok(), f"mesh split not eligible fs={fs}"
-        assert pm._cascade_k < len(pm.resampler.stages)
-        bo = io.BytesIO()
-        pm.run(io.BytesIO(raw), bo)
-        assert pm._sharded_cascade_step is not None, "sharded step unused"
-        xa = np.frombuffer(ao.getvalue(), "<i2").astype(np.int32)
-        xb = np.frombuffer(bo.getvalue(), "<i2").astype(np.int32)
-        assert xa.size == xb.size and xa.size > 0
-        d = np.abs(xa - xb)
-        assert d.max() <= 1 and np.mean(d > 0) < 0.001, f"fs={fs}"
+    raw = i16_stream(2048 * 16 * 4)
+    mesh = make_mesh(channel=4)
+    _, full = _channels_run(FS, mesh, raw)
+    _, ref = _channels_run(FS, None, raw)
+    cut = 2048 * 16 * 2 * 4
+
+    def mk():
+        specs = [ChannelSpec(name=f"ch{k}",
+                             scheduler=ConstScheduler(-30000.0 + 8000 * k))
+                 for k in range(8)]
+        return MultiChannelPipeline(FS, "i16", "i16", specs, out_rate=48000,
+                                    chunk_blocks=16, mesh=mesh,
+                                    resample_stages="multi")
+
+    p1 = mk()
+    o1 = [io.BytesIO() for _ in range(8)]
+    p1.run(io.BytesIO(raw[:cut]), o1)
+    state = io.BytesIO()
+    checkpoint.save_channels(state, p1)
+    state.seek(0)
+    p2 = mk()
+    meta = checkpoint.restore_channels(state, p2)
+    assert meta["samples_in"] * 4 == cut
+    o2 = [io.BytesIO() for _ in range(8)]
+    p2.run(io.BytesIO(raw[cut:]), o2)
+    got = [x.getvalue() + y.getvalue() for x, y in zip(o1, o2)]
+    assert got == full
+    _assert_within_1lsb(ref, got, "<i2")
+
+
+def test_mesh_channels_cascade_mixed_rate_groups(devices_ok):
+    """Rate groups of different kinds on one channel mesh: a cascade group,
+    a single-stage group and an unresampled group each run their own
+    sharded step, matching the unsharded run."""
+    raw = i16_stream(2048 * 16 * 2 + 3000)
+    rates = [48000.0, 48000.0, 512000.0, 512000.0, None, None]
+    kw = dict(n=6, rates=rates, out_rate=None, stages="auto")
+    mp0, a = _channels_run(FS, None, raw, **kw)
+    mp, b = _channels_run(FS, make_mesh(channel=2), raw, **kw)
+    kinds = {k for k, _ in mp._sharded_steps}
+    assert kinds == {"casc", "rs", "mix"}, kinds
+    _assert_within_1lsb(a, b, "<i2")
 
 
 def test_mesh_config5_literal_rate_sharded(devices_ok):
     """BASELINE config 5's literal rate (100 Msps → 48 ksps: ÷16, ÷16,
-    then 384/3125): the sharded channel-batched SPLIT cascade must engage
-    (round 4: the halo-replay span widens past the carry cone until the
-    ÷16 stages' D-divisibility validates), ≤1 LSB vs unsharded."""
+    then 384/3125) on a channel=4 mesh: the sharded XLA cascade engages
+    and matches the unsharded run (≤1 LSB, identical lengths)."""
     fs = 100_000_000
     raw = np.random.default_rng(5).integers(
         -9000, 9000, size=2 * 2048 * 64, dtype=np.int16
@@ -476,8 +407,7 @@ def test_mesh_config5_literal_rate_sharded(devices_ok):
                              scheduler=ConstScheduler(1e6 * (k - 1.5)))
                  for k in range(4)]
         mp = MultiChannelPipeline(fs, "i16", "i16", specs, out_rate=48000,
-                                  chunk_blocks=32, impl="pallas",
-                                  pallas_interpret=True, mesh=mesh,
+                                  chunk_blocks=32, mesh=mesh,
                                   resample_stages="multi")
         outs = [io.BytesIO() for _ in specs]
         mp.run(io.BytesIO(raw), outs)
@@ -486,10 +416,49 @@ def test_mesh_config5_literal_rate_sharded(devices_ok):
     mp, a = run(None)
     assert [(st.P, st.Q) for st in mp.resampler.stages] == [
         (1, 16), (1, 16), (384, 3125)]
-    m, b = run(make_mesh(time=2, channel=2))
-    assert ("casc", 0) in m._sharded_steps and not m._warned
-    for x, y in zip(a, b):
-        xa = np.frombuffer(x, "<i2").astype(np.int32)
-        xb = np.frombuffer(y, "<i2").astype(np.int32)
-        assert xa.size == xb.size and xa.size > 0
-        assert np.abs(xa - xb).max() <= 1
+    m, b = run(make_mesh(channel=4))
+    assert ("casc", 0) in m._sharded_steps
+    _assert_within_1lsb(a, b, "<i2")
+
+
+@pytest.mark.parametrize("where", ["stream", "channels", "cli"])
+def test_mesh_time_sharded_cascade_is_refused(devices_ok, where):
+    """A cascade on a time-sharded mesh is a configuration error naming
+    the alternatives — it never runs on the first device instead."""
+    if where == "stream":
+        pipe = Pipeline(FS, "i16", "i16", ConstScheduler(0.0),
+                        chunk_blocks=16, mesh=make_mesh(time=2))
+        with pytest.raises(ValueError, match="resample-stages single"):
+            attach_resampler(pipe, 48000, stages="multi")
+        assert pipe.resampler is None
+    elif where == "channels":
+        with pytest.raises(ValueError, match="channel=N only"):
+            _channels_run(FS, make_mesh(time=2, channel=2), b"")
+    else:
+        import logging
+
+        from doppler_tpu.cli import main
+
+        logger = logging.getLogger("doppler_tpu")
+        saved = (list(logger.handlers), logger.propagate, logger.level)
+        try:
+            rc = main(["const", "-s", str(FS), "-i", "i16", "--shift", "0",
+                       "--resample-to", "48000", "--mesh", "time=2",
+                       "--chunk-blocks", "16", "--platform", "cpu"],
+                      stdin=io.BytesIO(i16_stream(2048)),
+                      stdout=io.BytesIO())
+            assert rc == 1
+        finally:
+            logger.handlers, logger.propagate = saved[0], saved[1]
+            logger.setLevel(saved[2])
+
+
+def test_mesh_channels_uneven_rate_group_is_refused(devices_ok):
+    """A rate group whose channels do not divide over the channel axis has
+    no sharded step; it is refused rather than run unsharded."""
+    specs = [ChannelSpec(name=f"c{k}", scheduler=ConstScheduler(0.0),
+                         out_rate=48000.0 if k < 3 else None)
+             for k in range(4)]
+    with pytest.raises(ValueError, match="rate group of 3"):
+        MultiChannelPipeline(FS, "i16", "i16", specs, chunk_blocks=16,
+                             mesh=make_mesh(channel=2))
